@@ -29,6 +29,12 @@ else:
     settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "ci"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (a hand-written kernel has no "
+        "CPU mode); skips without one")
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--soak", action="store_true", default=False,
