@@ -19,7 +19,27 @@ Phases, in order; each prints one line and any failure exits non-zero:
    tokens against the model's contiguous-cache decode;
 6. serving TinyLlama-1.1B in bf16 (its config's dtype) under ``packed``:
    16 requests, every one must complete, both kernels must launch;
-7. the kernel table as one JSON line, the card line, and the result line
+7. the flash-attention kernel against its plain version at the models'
+   full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
+   as Zamba2 and Hkv = 4 as TinyLlama, D = 64), fp32 and bf16, with
+   kernel, plain, library (one causal GQA ``scaled_dot_product_attention``
+   call) and bound times;
+8. the SSD kernel against its plain version at the Mamba2 block's shapes
+   (B = 4, S = 1024 and 1000, H = 64, P = 64, N = 128 as Mamba2-1.3B and
+   64 as Zamba2-1.2B, chunk 128, with d_skip), fp32 and bf16, likewise
+   (no single PyTorch call computes SSD, so no library time);
+9. Mamba2-1.3B and Zamba2-1.2B at published widths and depths in fp32
+   (seeded weights, the decay, skip and conv-bias leaves perturbed from
+   their zero init): ``logits_fn`` over 2 prompts of 300 tokens held
+   against token-by-token ``decode_step`` at every position, then 16
+   greedy tokens held against the forward over prompt and tokens; the
+   launch counters must show one SSD launch per Mamba2 block and one flash
+   launch per Zamba2 attention site in each forward;
+10. both models in bf16 (their configs' dtype): ``logits_fn`` over 4
+   prompts of 1024 tokens, then 32 greedy decode steps at B = 4 from a
+   fresh cache fed the prefill's greedy tokens; wall times, tokens/s and
+   launches; everything finite, every kernel of the path launched;
+11. the kernel table as one JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM, 989 TFLOP/s
@@ -45,6 +65,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 PAGED_TPU = "src/repro/kernels/paged_attention.py:103"
 PACKED_TPU = "src/repro/kernels/packed_prefill.py:93"
+FLASH_TPU = "src/repro/kernels/flash_attention.py:72"
+SSD_TPU = "src/repro/kernels/ssd_scan.py:70"
+SSD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
+MODEL_TOL = 2e-3   # decode against forward, as tests/test_models_smoke.py
 DEVICE = "cuda"
 
 
@@ -411,6 +435,241 @@ def serve_bf16(torch):
     return summary, launches
 
 
+# ----------------------------------------------------------- phase 7
+
+
+def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7):
+    """Causal attention at a model's full-sequence shape: B = 4, H = 32,
+    D = 64, S tokens, Hkv kv heads.  Returns a row (times only if
+    ``timed``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, h, d = 4, 32, 64
+    rng = np.random.RandomState(seed + s + hkv)
+    dt = getattr(torch, dtype)
+    q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(DEVICE, dt) for shape in
+        ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}]: "
+                             f"non-finite")
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": FLASH_TPU,
+           "max_abs_err": close_enough(out, want, TOL[dtype])}
+    del want
+    if not timed:
+        return row
+    elt = q.element_size()
+    nbytes = (2 * b * s * h * d + 2 * b * s * hkv * d) * elt
+    flops = 4.0 * b * h * d * s * (s + 1) / 2
+    qt, kt, vt = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    row["ms"] = timer.ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    row["plain_ms"] = timer.ms(
+        lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5)
+    row["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    return row
+
+
+# ----------------------------------------------------------- phase 8
+
+
+def ssd_flops(s, chunk, h, p, n, b):
+    """Operations of the chunked dual form for this length: per chunk of q
+    positions, the causal half of the C·Bᵀ scores and of their product with
+    x, the carried state's contribution to y, and the state update."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        tri = q * (q + 1) / 2
+        total += 2 * (tri * n + tri * p + 2 * q * p * n)
+    return float(total) * b * h
+
+
+def phase_ssd(torch, timer, dtype, s, n, timed, seed=8):
+    """The SSD chunk scan at a Mamba2 block's shape: B = 4, H = 64, P = 64,
+    G = 1, state N, chunk 128, with d_skip; dt and a in fp32 as the model
+    passes them."""
+    from repro_torch.kernels import ssd_scan as ss
+    b, h, p, g, chunk = 4, 64, 64, 1, 128
+    rng = np.random.RandomState(seed + s + n)
+    dt_ = getattr(torch, dtype)
+
+    def dev(a, to=dt_):
+        return torch.from_numpy(a.astype(np.float32)).to(DEVICE, to)
+    x = dev(rng.standard_normal((b, s, h, p)))
+    dt = dev(np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0)),
+             torch.float32)
+    a = dev(-np.exp(rng.standard_normal((h,)) * 0.5), torch.float32)
+    bm = dev(rng.standard_normal((b, s, g, n)) * 0.3)
+    cm = dev(rng.standard_normal((b, s, g, n)) * 0.3)
+    ds = dev(rng.standard_normal((h,)), torch.float32)
+    want_y, want_f = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk=chunk,
+                                       d_skip=ds)
+    y, final = ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=ds)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y.float()).all() and
+            torch.isfinite(final).all()):
+        raise AssertionError(f"ssd_scan[S={s}, N={n}]: non-finite")
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": SSD_TPU,
+           "max_abs_err": max(close_enough(y, want_y, SSD_TOL[dtype]),
+                              close_enough(final, want_f, SSD_TOL[dtype]))}
+    del want_y, want_f
+    if not timed:
+        return row
+    elt = x.element_size()
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * elt + \
+        4 * (b * s * h + 2 * h + b * h * p * n)
+    row["ms"] = timer.ms(lambda: ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                             d_skip=ds))
+    row["plain_ms"] = timer.ms(lambda: ss.ssd_scan_plain(
+        x, dt, a, bm, cm, chunk=chunk, d_skip=ds), iters=5)
+    row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, ssd_flops(s, chunk, h, p, n, b), dtype)
+    return row
+
+
+# ------------------------------------------------------ phases 9 and 10
+
+
+def reset_launches():
+    from repro_torch.kernels import (flash_attention, packed_prefill,
+                                     paged_attention, ssd_scan)
+    for mod in (flash_attention, packed_prefill, paged_attention, ssd_scan):
+        mod.launches.reset()
+
+
+def read_launches():
+    from repro_torch.kernels import flash_attention, ssd_scan
+    return {"ssd_scan": ssd_scan.launches.count,
+            "flash_attention": flash_attention.launches.count}
+
+
+def perturbed_model(torch, arch, dtype=None, seed=0):
+    """A full-width model with seeded weights, its zero-initialised
+    ``a_log``, ``dt_bias``, ``d_skip`` and ``conv_b`` replaced by seeded
+    normal values (scale 0.5), so heads decay differently and the skip
+    term is exercised."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(seed=seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    with torch.no_grad():
+        for blk in params.blocks:
+            for name in ("a_log", "dt_bias", "d_skip", "conv_b"):
+                t = getattr(blk, name)
+                t.copy_(torch.randn(t.shape, generator=gen, device=DEVICE)
+                        * 0.5)
+    return model, params
+
+
+def model_fp32(torch, arch, b=2, s=300, n_new=16):
+    """Forward against token-by-token decode at full width in fp32."""
+    model, params = perturbed_model(torch, arch, "float32")
+    cfg = model.cfg
+    rng = np.random.RandomState(9)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(
+        DEVICE)
+    want_launches = {"ssd_scan": cfg.n_layers,
+                     "flash_attention": getattr(model, "n_sites", 0)}
+
+    def forward(toks):
+        reset_launches()
+        logits, _ = model.logits_fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        if read_launches() != want_launches:
+            raise AssertionError(f"{arch} fp32: launches per forward "
+                                 f"{read_launches()} != {want_launches}")
+        return logits
+
+    def step(cache, toks, t):
+        return model.decode_step(params, cache, {
+            "tokens": toks, "cache_len": torch.full(
+                (b,), t + 1, dtype=torch.int32, device=DEVICE)})
+
+    with torch.inference_mode():
+        full = forward(tokens)
+        cache = model.init_cache(b, s + n_new + 1, device=DEVICE)
+        dec = []
+        for t in range(s):
+            logits, cache = step(cache, tokens[:, t:t + 1], t)
+            dec.append(logits)
+        err_prompt = close_enough(torch.stack(dec, 1), full, MODEL_TOL)
+        gen, gen_logits = [torch.argmax(dec[-1], -1)], []
+        for t in range(s, s + n_new):
+            logits, cache = step(cache, gen[-1][:, None], t)
+            gen_logits.append(logits)
+            gen.append(torch.argmax(logits, -1))
+        both = torch.cat([tokens, torch.stack(gen[:-1], 1)], 1)
+        err_gen = close_enough(torch.stack(gen_logits, 1),
+                               forward(both)[:, s:], MODEL_TOL)
+    del params, cache, full
+    torch.cuda.empty_cache()
+    return (f"{arch}: logits_fn (B={b}, S={s}) vs decode_step at every "
+            f"position max_abs_err {err_prompt:.3g}; {n_new} greedy tokens "
+            f"vs forward max_abs_err {err_gen:.3g} (tol {MODEL_TOL}); "
+            f"launches per forward {want_launches}")
+
+
+def model_bf16(torch, arch, b=4, s=1024, n_new=32):
+    """The main path of the slice for one family, in its configs' dtype:
+    prefill through ``logits_fn``, then greedy decode.  Returns (summary,
+    launches during the run)."""
+    model, params = perturbed_model(torch, arch)
+    cfg = model.cfg
+    rng = np.random.RandomState(10)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(
+        DEVICE)
+    with torch.inference_mode():
+        cache = model.init_cache(b, n_new + 1, device=DEVICE)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = model.logits_fn(params, {"tokens": tokens})
+        tok = torch.argmax(logits[:, -1], -1)
+        finite = bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = []
+        for t in range(n_new):
+            logits, cache = model.decode_step(params, cache, {
+                "tokens": tok[:, None], "cache_len": torch.full(
+                    (b,), t + 1, dtype=torch.int32, device=DEVICE)})
+            finite = finite and bool(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, -1)
+            outs.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_launches()
+    if not finite:
+        raise AssertionError(f"{arch} bf16: non-finite logits")
+    want = ["ssd_scan"] + (["flash_attention"] if cfg.family == "hybrid"
+                           else [])
+    if min(launches[k] for k in want) < 1:
+        raise AssertionError(f"{arch} bf16: a kernel never launched: "
+                             f"{launches}")
+    del params, cache
+    torch.cuda.empty_cache()
+    summary = {"model": arch, "batch": b, "prompt_tokens": s,
+               "prefill_s": t1 - t0, "prefill_tok_s": b * s / (t1 - t0),
+               "decode_steps": n_new, "decode_s": t2 - t1,
+               "decode_tok_s": b * n_new / (t2 - t1),
+               "launches": launches}
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -462,10 +721,51 @@ def main() -> int:
     say(f"[6 serve bf16] {json.dumps(summary)} [{card}] "
         f"{time.perf_counter() - t0:.1f} s")
 
+    for dtype in ("float32", "bfloat16"):
+        for hkv in (32, 4):
+            for s in (1024, 1000):
+                t0 = time.perf_counter()
+                row = phase_flash(torch, timer, dtype, s, hkv,
+                                  timed=s == 1024)
+                kernels[("flash", dtype, hkv, s)] = row
+                say(f"[7 flash {dtype} S={s} Hkv={hkv}] max_abs_err "
+                    f"{row['max_abs_err']:.3g}" + (
+                        f"; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                        f"library {row['library_ms']:.4f} bound "
+                        f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                        f"[{card}]" if "ms" in row else "") +
+                    f" {time.perf_counter() - t0:.1f} s")
+    for dtype in ("float32", "bfloat16"):
+        for n in (128, 64):
+            for s in (1024, 1000):
+                t0 = time.perf_counter()
+                row = phase_ssd(torch, timer, dtype, s, n, timed=s == 1024)
+                kernels[("ssd", dtype, n, s)] = row
+                say(f"[8 ssd {dtype} S={s} N={n}] max_abs_err "
+                    f"{row['max_abs_err']:.3g}" + (
+                        f"; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                        f"bound {row['bound_ms']:.4f} ({row['bound_by']}) "
+                        f"[{card}]" if "ms" in row else "") +
+                    f" {time.perf_counter() - t0:.1f} s")
+
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        t0 = time.perf_counter()
+        line = model_fp32(torch, arch)
+        say(f"[9 model fp32] {line} {time.perf_counter() - t0:.1f} s")
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        t0 = time.perf_counter()
+        summary, path_launches = model_bf16(torch, arch)
+        for name, count in path_launches.items():
+            launches[name] = launches.get(name, 0) + count
+        say(f"[10 model bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+
     table = []
     for key, name in ((("paged", "bfloat16"), "paged_attention"),
                       (("packed", "bfloat16", 8),
-                       "packed_prefill_attention")):
+                       "packed_prefill_attention"),
+                      (("flash", "bfloat16", 32, 1024), "flash_attention"),
+                      (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
         row = {k: v for k, v in kernels[key].items()
                if k not in ("errs", "splits")}
         row["launches"] = launches[name]

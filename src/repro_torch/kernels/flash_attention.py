@@ -1,0 +1,118 @@
+"""Dense attention forward: the hand-written Hopper kernel, its wrapper and
+its plain PyTorch version.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
+(+ ``_flash_kernel``).  The kernel is ``csrc/flash_attention.cu``: one
+block per (batch, head, tile of 64 query rows), walking key tiles of 64
+only up to the diagonal when causal, with the kv head taken as
+``h / group`` (GQA without copying K/V) and an fp32 online softmax.  Any
+Sq and Sk work: the ragged tails are masked in the kernel, where the TPU
+dispatch asked for ``Sq % block_q == 0``.
+
+Causal alignment: the TPU kernel aligns the mask top-left (query i sees
+keys 0..i), the JAX oracle bottom-right (``tril(k=Sk - Sq)``).  The two
+agree only when Sq == Sk, which is every model call, so ``causal=True``
+accepts Sq == Sk only and raises otherwise.
+
+Bound on H100: at the models' shapes (S = 1000–1024, D = 64) the causal
+product is about 4 * B * H * S^2 / 2 * D operations against a few MB of
+q, k, v and out, so it is bound by operations.  This first version does
+its products as fp32 FMAs from shared memory (a 4 x 4 register tile per
+thread); moving QK^T and PV onto wgmma is later work.
+
+Dispatch is by device: a CUDA tensor launches the kernel (or raises); a
+CPU tensor runs :func:`flash_attention_plain`.  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build, ref
+
+MAX_HEAD_DIM = 128   # the kernel's register tile covers D <= 128
+
+launches = build.LaunchCounter()
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# q, k, v, out; B, Sq, Sk, H, Hkv, D, causal; scale; dtype; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _check_causal(q, k, causal: bool) -> None:
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(
+            f"flash_attention: causal=True needs Sq == Sk (got Sq "
+            f"{q.shape[1]}, Sk {k.shape[1]}): the kernel aligns the mask "
+            f"top-left and the oracle bottom-right, which agree only then")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool):
+    """The kernel's function in plain PyTorch: the oracle
+    :func:`repro_torch.kernels.ref.flash_attention_ref` (fp32 softmax, the
+    scale applied to q in fp32), under the kernel's causal contract."""
+    _check_causal(q, k, causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)
+
+
+def _check(q, k, v, causal):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
+                        f"(float32 or bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share one dtype")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: need q (B,Sq,H,D) and k/v "
+                         "(B,Sk,Hkv,D) of one shape")
+    b, sq, h, d = q.shape
+    bk, sk, hkv, dk = k.shape
+    if bk != b or dk != d or h % hkv:
+        raise ValueError(f"flash_attention: shapes disagree (q {q.shape}, "
+                         f"k {k.shape})")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if sk < 1:
+        raise ValueError("flash_attention: need at least one key")
+    _check_causal(q, k, causal)
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("flash_attention: all tensors must be on one "
+                         "device")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention: all tensors must be contiguous")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool):
+    """Launch ``csrc/flash_attention.cu`` on the current stream."""
+    _check(q, k, v, causal)
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    fn = build.function("flash_attention", "flash_attention_launch",
+                        _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, sk, h, hkv, d, int(causal), 1.0 / math.sqrt(d),
+                 _DTYPES[q.dtype], stream)
+    build.check("flash_attention", err)
+    launches.add()
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool):
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) → (B,Sq,H,D) in q's dtype; fp32
+    online softmax with scale 1/sqrt(D).  ``causal=True`` needs Sq == Sk.
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return flash_attention_plain(q, k, v, causal=causal)

@@ -1,4 +1,4 @@
-"""The public kernel API used by the serving engine.
+"""The public kernel API used by the models and the serving engine.
 
 Dispatch is by the tensor's device, not by a backend flag: a CUDA tensor
 launches the hand-written kernel (or raises), a CPU tensor runs the plain
@@ -10,18 +10,20 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
+from .flash_attention import flash_attention
 from .packed_prefill import packed_prefill_attention
 from .paged_attention import paged_attention
+from .ssd_scan import ssd_scan as ssd
 
-__all__ = ["paged_attention", "packed_prefill_attention", "sample_tokens",
-           "prepare"]
+__all__ = ["flash_attention", "paged_attention", "packed_prefill_attention",
+           "ssd", "sample_tokens", "prepare"]
 
 
 def prepare(device) -> None:
-    """Build and load every kernel the engine launches on ``device`` (a
-    no-op on the CPU).  Called when a shard is constructed, so the first
-    build never lands inside a step, where it would hold the step lock and
-    read as a stall to the watchdog."""
+    """Build and load every kernel of the port on ``device`` (a no-op on
+    the CPU).  The serving engine calls it when a shard is constructed, so
+    the first build never lands inside a step, where it would hold the
+    step lock and read as a stall to the watchdog."""
     if torch.device(device).type == "cuda":
         for name in build.SOURCES:
             build.library(name)

@@ -14,6 +14,25 @@ import torch
 # ------------------------------------------------------------ attention
 
 
+def flash_attention_ref(q, k, v, causal: bool = True, softmax_scale=None):
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) → (B,Sq,H,D); fp32 softmax.  The
+    causal mask is aligned bottom-right (``tril(k=Sk - Sq)``), as the JAX
+    oracle's."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = h // hkv
+    scale = softmax_scale or 1.0 / math.sqrt(d)
+    qf = q.reshape(b, sq, hkv, g, d).float() * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
                         softmax_scale=None, occupancy=None):
     """Decode attention over a paged KV pool.
@@ -91,6 +110,100 @@ def packed_prefill_attention_ref(q, k_pages, v_pages, page_rows, seg_ids,
     p = torch.where(valid[:, None, None, None], p, 0.0)
     out = torch.einsum("ckgs,cskd->ckgd", p, v_seq)
     return out.reshape(c, h, d).to(q.dtype)
+
+
+# ------------------------------------------------------------------ SSD
+
+
+def ssd_ref(x, dt, a, b, c, chunk: int = 128, d_skip=None,
+            initial_state=None):
+    """Mamba2 SSD (state-space dual): the sequential reference recurrence.
+
+    x: (B,S,H,P); dt: (B,S,H); a: (H,) (negative); b,c: (B,S,G,N).
+    Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32).
+    ``chunk`` is accepted for signature parity and unused."""
+    del chunk
+    bsz, s, h, p = x.shape
+    _, _, g, n = b.shape
+    hg = h // g
+    xf = x.float()
+    dtf = dt.float()
+    bf = b.float().repeat_interleave(hg, dim=2)       # (B,S,H,N)
+    cf = c.float().repeat_interleave(hg, dim=2)
+    da = torch.exp(dtf * a.float()[None, None, :])    # (B,S,H)
+    if initial_state is None:
+        state = torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                            device=x.device)
+    else:
+        state = initial_state.float()
+    ys = []
+    for t in range(s):
+        state = state * da[:, t, :, None, None] + \
+            (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) * \
+            bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(xf)
+    if d_skip is not None:
+        y = y + xf * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_ref(x, dt, a, b, c, chunk: int = 128, d_skip=None,
+                    initial_state=None):
+    """The chunked (dual) form: the parallel algorithm the kernel tiles.
+    Mathematically identical to :func:`ssd_ref`; as in the JAX oracle, a
+    length that is not a multiple of ``chunk`` runs as one chunk."""
+    bsz, s, h, p = x.shape
+    _, _, g, n = b.shape
+    hg = h // g
+    if s % chunk != 0:
+        chunk = s
+    nc = s // chunk
+
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    bf = b.float().repeat_interleave(hg, dim=2).reshape(bsz, nc, chunk, h, n)
+    cf = c.float().repeat_interleave(hg, dim=2).reshape(bsz, nc, chunk, h, n)
+
+    da = dtf * a.float()[None, None, None, :]          # (B,nc,Q,H) log-decay
+    da_cs = torch.cumsum(da, dim=2)                    # within-chunk cumsum
+    da_total = da_cs[:, :, -1]                         # (B,nc,H)
+
+    # intra-chunk (dual, attention-like) term
+    seg = da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()[None, None, :, :, None]
+    l_mat = torch.where(causal, torch.exp(seg), 0.0)
+    scores = torch.einsum("bcihs,bcjhs->bcijh", cf, bf)  # C_i · B_j
+    y_diag = torch.einsum("bcijh,bcijh,bcjh,bcjhp->bcihp",
+                          scores, l_mat, dtf, xf)
+
+    # chunk-local end states
+    decay_to_end = torch.exp(da_total[:, :, None, :] - da_cs)  # (B,nc,Q,H)
+    states = torch.einsum("bcqhs,bcqh,bcqh,bcqhp->bchps",
+                          bf, decay_to_end, dtf, xf)
+
+    # inter-chunk recurrence
+    if initial_state is None:
+        state = torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                            device=x.device)
+    else:
+        state = initial_state.float()
+    prevs = []
+    for ci in range(nc):
+        prevs.append(state)
+        state = state * torch.exp(da_total[:, ci])[:, :, None, None] + \
+            states[:, ci]
+    prev_states = torch.stack(prevs, dim=1)            # (B,nc,H,P,N)
+
+    # inter-chunk contribution
+    y_off = torch.einsum("bcqhs,bcqh,bchps->bcqhp",
+                         cf, torch.exp(da_cs), prev_states)
+
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    if d_skip is not None:
+        y = y + x.float() * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), state
 
 
 # ------------------------------------------------------------- sampling

@@ -1,4 +1,5 @@
-"""Model zoo of the torch port: the dense decoder family."""
+"""Model zoo of the torch port: the dense decoder, Mamba2 (``ssm``) and
+Zamba2 (``hybrid``) families."""
 
 from .params import from_jax_params
 from .registry import build_model

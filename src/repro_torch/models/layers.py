@@ -1,5 +1,5 @@
-"""Shared neural primitives for the dense decoder, ported from the JAX
-package's ``models/layers.py``.  Norms and rotary embeddings compute in
+"""Shared neural primitives of the models, ported from the JAX package's
+``models/layers.py``.  Norms and rotary embeddings compute in
 fp32 inside and cast back, as the reference does."""
 
 from __future__ import annotations
@@ -7,6 +7,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..kernels import ops
 
 # ----------------------------------------------------------------- norms
 
@@ -43,20 +45,14 @@ def apply_rope(x, angles):
 # ------------------------------------------------------------- attention
 
 
-def causal_attention(q, k, v):
-    """Full causal attention, q (B,S,H,D), k/v (B,S,Hkv,D) → (B,S,H,D),
-    fp32 softmax (the plain counterpart of the reference's blockwise
-    streaming softmax; same function)."""
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
-    g = h // hkv
-    qf = q.reshape(b, s, hkv, g, d).float() * (1.0 / math.sqrt(d))
-    sc = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    sc = sc.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+def blockwise_attention(q, k, v, *, causal: bool):
+    """Full-sequence attention, q (B,S,H,D), k/v (B,S,Hkv,D) → (B,S,H,D),
+    fp32 online softmax: the reference's ``blockwise_attention`` (the
+    pure-JAX mirror of its flash kernel), run through the flash kernel
+    (:func:`repro_torch.kernels.ops.flash_attention`; on a CPU tensor its
+    plain version).  The reference's KV ``chunk`` only orders the sums, so
+    it is not an argument here."""
+    return ops.flash_attention(q, k, v, causal=causal)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):

@@ -1,10 +1,12 @@
-"""Parameters of the dense decoder: ``nn.Module`` containers, seeded init
-on a device, and the bridge from the JAX package's parameter tree.
+"""Parameters of the ported model families (dense decoder, Mamba2, Zamba2):
+``nn.Module`` containers, seeded init on a device, and the bridge from the
+JAX package's parameter tree.
 
 Weights keep the JAX layout ``(in, out)`` (``x @ W``), so the bridge is a
 copy, never a transpose.  Init follows the reference's scheme
 (``repro/models/params.py``): fan-in scaled truncated normal on [-2, 2]
-(scale ``1 / sqrt(shape[0])``), norms at one.  Draws come from a
+(scale ``1 / sqrt(shape[0])``), norms at one, and the Mamba2 block's
+``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip`` at zero.  Draws come from a
 ``torch.Generator``, so the numbers differ from JAX's for the same seed;
 the tests bridge the JAX init instead."""
 
@@ -74,6 +76,36 @@ class DecoderParams(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
+class MambaBlockParams(nn.Module):
+    """One Mamba2 block: ln (d,), in_proj (d, 2 di + 2 G N + H), conv_w
+    (W, C), conv_b (C,), dt_bias / a_log / d_skip (H,), out_norm (di,),
+    out_proj (di, d)."""
+
+    NAMES = ("ln", "in_proj", "conv_w", "conv_b", "dt_bias", "a_log",
+             "d_skip", "out_norm", "out_proj")
+
+    def __init__(self, **leaves):
+        super().__init__()
+        for name in self.NAMES:
+            setattr(self, name, _frozen(leaves[name]))
+
+
+class Mamba2Params(DecoderParams):
+    """embed (V, d), final_norm (d,), lm_head (d, V), and one
+    :class:`MambaBlockParams` per layer."""
+
+
+class Zamba2Params(Mamba2Params):
+    """A Mamba2 backbone plus ONE shared attention block (a
+    :class:`BlockParams`: ln1, ln2, attention, SwiGLU FFN) whose weights
+    every application site reuses."""
+
+    def __init__(self, embed, final_norm, lm_head, shared: BlockParams,
+                 blocks):
+        super().__init__(embed, final_norm, lm_head, blocks)
+        self.shared = shared
+
+
 class _Init:
     """Sequential seeded draws on one device."""
 
@@ -93,27 +125,71 @@ class _Init:
     def ones(self, *shape):
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
+    def zeros(self, *shape):
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+def _init_block(ini: _Init, cfg) -> BlockParams:
+    """One dense block (also Zamba2's shared block)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ln1, ln2 = ini.ones(d), ini.ones(d)
+    attn = AttentionParams(
+        ini.normal(d, h * hd), ini.normal(d, kv * hd),
+        ini.normal(d, kv * hd), ini.normal(h * hd, d),
+        *((ini.ones(hd), ini.ones(hd)) if cfg.qk_norm else ()))
+    ffn = FFNParams(ini.normal(d, cfg.d_ff), ini.normal(d, cfg.d_ff),
+                    ini.normal(cfg.d_ff, d))
+    return BlockParams(ln1, ln2, attn, ffn)
+
+
+def conv_channels(cfg) -> int:
+    """Channels of a Mamba2 block's causal conv: x, B and C."""
+    return cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
+
+
+def _init_mamba_block(ini: _Init, cfg) -> MambaBlockParams:
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_n_heads
+    conv_ch = conv_channels(cfg)
+    gn = cfg.ssm_n_groups * cfg.ssm_state
+    return MambaBlockParams(
+        ln=ini.ones(d), in_proj=ini.normal(d, 2 * di + 2 * gn + h),
+        conv_w=ini.normal(cfg.ssm_conv_width, conv_ch),
+        conv_b=ini.zeros(conv_ch), dt_bias=ini.zeros(h), a_log=ini.zeros(h),
+        d_skip=ini.zeros(h), out_norm=ini.ones(di),
+        out_proj=ini.normal(di, d))
+
+
+def _init_outer(ini: _Init, cfg):
+    return (ini.normal(cfg.vocab_size, cfg.d_model), ini.ones(cfg.d_model),
+            ini.normal(cfg.d_model, cfg.vocab_size))
+
 
 def init_params(cfg, seed: int = 0, device=None) -> DecoderParams:
     """Seeded init of a dense decoder at ``cfg``'s widths, on ``device``
     (``None`` = the card)."""
-    dev = resolve_device(device)
-    ini = _Init(seed, DTYPES[cfg.dtype], dev)
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    embed = ini.normal(cfg.vocab_size, d)
-    final_norm = ini.ones(d)
-    lm_head = ini.normal(d, cfg.vocab_size)
-    blocks = []
-    for _ in range(cfg.n_layers):
-        ln1, ln2 = ini.ones(d), ini.ones(d)
-        attn = AttentionParams(
-            ini.normal(d, h * hd), ini.normal(d, kv * hd),
-            ini.normal(d, kv * hd), ini.normal(h * hd, d),
-            *((ini.ones(hd), ini.ones(hd)) if cfg.qk_norm else ()))
-        ffn = FFNParams(ini.normal(d, cfg.d_ff), ini.normal(d, cfg.d_ff),
-                        ini.normal(cfg.d_ff, d))
-        blocks.append(BlockParams(ln1, ln2, attn, ffn))
+    ini = _Init(seed, DTYPES[cfg.dtype], resolve_device(device))
+    embed, final_norm, lm_head = _init_outer(ini, cfg)
+    blocks = [_init_block(ini, cfg) for _ in range(cfg.n_layers)]
     return DecoderParams(embed, final_norm, lm_head, blocks)
+
+
+def init_mamba2_params(cfg, seed: int = 0, device=None) -> Mamba2Params:
+    """Seeded init of a Mamba2 LM at ``cfg``'s widths, on ``device``
+    (``None`` = the card)."""
+    ini = _Init(seed, DTYPES[cfg.dtype], resolve_device(device))
+    embed, final_norm, lm_head = _init_outer(ini, cfg)
+    blocks = [_init_mamba_block(ini, cfg) for _ in range(cfg.n_layers)]
+    return Mamba2Params(embed, final_norm, lm_head, blocks)
+
+
+def init_zamba2_params(cfg, seed: int = 0, device=None) -> Zamba2Params:
+    """Seeded init of a Zamba2 hybrid at ``cfg``'s widths, on ``device``
+    (``None`` = the card)."""
+    ini = _Init(seed, DTYPES[cfg.dtype], resolve_device(device))
+    embed, final_norm, lm_head = _init_outer(ini, cfg)
+    shared = _init_block(ini, cfg)
+    blocks = [_init_mamba_block(ini, cfg) for _ in range(cfg.n_layers)]
+    return Zamba2Params(embed, final_norm, lm_head, shared, blocks)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -124,24 +200,44 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_jax_params(tree, cfg, device) -> DecoderParams:
-    """Bridge the JAX package's dense-decoder parameter tree (leaves
-    already converted to numpy, e.g. ``jax.tree_util.tree_map(np.asarray,
-    params)``) onto ``device``.  The stacked ``blocks`` leaves (leading
-    ``L`` axis) are split into per-layer modules."""
+def _layer(tree, i):
+    """Layer ``i`` of a stacked parameter tree (leading ``L`` axis)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _bridge_block(blk, cfg, dev) -> BlockParams:
+    a, f = blk["attn"], blk["ffn"]
+    norms = (_tensor(a["q_norm"], dev), _tensor(a["k_norm"], dev)) \
+        if cfg.qk_norm else ()
+    attn = AttentionParams(*(_tensor(a[n], dev)
+                             for n in ("wq", "wk", "wv", "wo")), *norms)
+    ffn = FFNParams(*(_tensor(f[n], dev) for n in ("wi_gate", "wi_up", "wo")))
+    return BlockParams(_tensor(blk["ln1"], dev), _tensor(blk["ln2"], dev),
+                       attn, ffn)
+
+
+def from_jax_params(tree, cfg, device):
+    """Bridge the JAX package's parameter tree of a ``dense``, ``ssm``
+    (Mamba2) or ``hybrid`` (Zamba2) model (leaves already converted to
+    numpy, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) onto
+    ``device``.  The stacked ``blocks`` leaves (leading ``L`` axis) are
+    split into per-layer modules; Zamba2's ``shared`` block is taken as
+    it is."""
     dev = torch.device(device)
+    outer = (_tensor(tree["embed"], dev), _tensor(tree["final_norm"], dev),
+             _tensor(tree["lm_head"], dev))
     blk = tree["blocks"]
-    blocks = []
-    for i in range(cfg.n_layers):
-        a, f = blk["attn"], blk["ffn"]
-        norms = (_tensor(a["q_norm"][i], dev), _tensor(a["k_norm"][i], dev)) \
-            if cfg.qk_norm else ()
-        attn = AttentionParams(*(_tensor(a[n][i], dev)
-                                 for n in ("wq", "wk", "wv", "wo")), *norms)
-        ffn = FFNParams(*(_tensor(f[n][i], dev)
-                          for n in ("wi_gate", "wi_up", "wo")))
-        blocks.append(BlockParams(_tensor(blk["ln1"][i], dev),
-                                  _tensor(blk["ln2"][i], dev), attn, ffn))
-    return DecoderParams(_tensor(tree["embed"], dev),
-                         _tensor(tree["final_norm"], dev),
-                         _tensor(tree["lm_head"], dev), blocks)
+    if cfg.family == "dense":
+        return DecoderParams(*outer, [_bridge_block(_layer(blk, i), cfg, dev)
+                                      for i in range(cfg.n_layers)])
+    mamba = [MambaBlockParams(**{n: _tensor(blk[n][i], dev)
+                                 for n in MambaBlockParams.NAMES})
+             for i in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        return Mamba2Params(*outer, mamba)
+    if cfg.family == "hybrid":
+        return Zamba2Params(*outer, _bridge_block(tree["shared"], cfg, dev),
+                            mamba)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to torch yet (ROADMAP A.10)")

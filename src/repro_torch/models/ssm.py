@@ -1,0 +1,154 @@
+"""Mamba2 (SSD, state-space duality) blocks and model, ported from the JAX
+package's ``models/ssm.py``.
+
+The full-sequence path runs the chunked dual form through the SSD kernel
+(:func:`repro_torch.kernels.ops.ssd`, whose plain version is
+``ssd_chunked_ref``); decode keeps an O(1) recurrent state, updated in plain
+PyTorch as the reference computes it outside any kernel.  The decode cache
+is ``{"ssm": (L, B, H, P, N) fp32, "conv": (L, B, W-1, C)}``, updated in
+place."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .layers import rms_norm
+from .params import (
+    DTYPES,
+    Mamba2Params,
+    conv_channels,
+    init_mamba2_params,
+    resolve_device,
+)
+
+
+def _split_in_proj(cfg, proj):
+    """proj (..., 2 di + 2 G N + H) → z (di), conv-in (di + 2 G N),
+    dt (H)."""
+    di = cfg.d_inner
+    gn = cfg.ssm_n_groups * cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * gn], \
+        proj[..., 2 * di + 2 * gn:]
+
+
+def _causal_conv_train(conv_in, w, b):
+    """Depthwise causal conv over the sequence: conv_in (B,S,C), w (W,C)."""
+    width, s = w.shape[0], conv_in.shape[1]
+    pad = F.pad(conv_in, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + s] * w[i][None, None, :] for i in range(width))
+    return F.silu(out + b[None, None, :])
+
+
+def _split_conv(cfg, conv_out):
+    """conv_out (..., C) → x (..., di), B (..., G N), C (..., G N)."""
+    di = cfg.d_inner
+    gn = cfg.ssm_n_groups * cfg.ssm_state
+    return conv_out[..., :di], conv_out[..., di:di + gn], \
+        conv_out[..., di + gn:]
+
+
+def mamba_block_train(p, cfg, x):
+    """One Mamba2 block over a full sequence; x (B,S,d) → (B,S,d)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, p.ln)
+    z, conv_in, dt = _split_in_proj(cfg, h @ p.in_proj)
+    xs, bmat, cmat = _split_conv(
+        cfg, _causal_conv_train(conv_in, p.conv_w, p.conv_b))
+    xs = xs.reshape(b, s, cfg.ssm_n_heads, cfg.ssm_head_dim)
+    bmat = bmat.reshape(b, s, cfg.ssm_n_groups, cfg.ssm_state)
+    cmat = cmat.reshape(b, s, cfg.ssm_n_groups, cfg.ssm_state)
+    dt = F.softplus(dt.float() + p.dt_bias)
+    a = -torch.exp(p.a_log.float())
+    y, _ = ops.ssd(xs.contiguous(), dt, a, bmat.contiguous(),
+                   cmat.contiguous(), chunk=cfg.ssm_chunk, d_skip=p.d_skip)
+    y = rms_norm(y.reshape(b, s, cfg.d_inner) * F.silu(z), p.out_norm)
+    return x + y @ p.out_proj
+
+
+def mamba_block_decode(p, cfg, x, ssm_state, conv_state):
+    """One token: x (B,1,d); ssm_state (B,H,P,N) fp32 and conv_state
+    (B,W-1,C), both updated in place.  Returns the block's output."""
+    bsz = x.shape[0]
+    h = rms_norm(x, p.ln)
+    z, conv_in, dt = _split_in_proj(cfg, (h @ p.in_proj)[:, 0])
+    # causal conv with the cached history
+    window = torch.cat([conv_state, conv_in[:, None, :]], dim=1)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", window, p.conv_w) +
+                      p.conv_b)
+    conv_state.copy_(window[:, 1:])
+    hg = cfg.ssm_n_heads // cfg.ssm_n_groups
+    xs, bmat, cmat = _split_conv(cfg, conv_out)
+    xf = xs.reshape(bsz, cfg.ssm_n_heads, cfg.ssm_head_dim).float()
+    bmat = bmat.reshape(bsz, cfg.ssm_n_groups, cfg.ssm_state) \
+        .repeat_interleave(hg, dim=1).float()                    # (B,H,N)
+    cmat = cmat.reshape(bsz, cfg.ssm_n_groups, cfg.ssm_state) \
+        .repeat_interleave(hg, dim=1).float()
+    dt = F.softplus(dt.float() + p.dt_bias)                      # (B,H)
+    a = -torch.exp(p.a_log.float())
+    da = torch.exp(dt * a[None, :])
+    ssm_state.mul_(da[..., None, None]).add_(
+        (dt[..., None, None] * xf[..., None]) * bmat[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state, cmat)
+    y = y + xf * p.d_skip.float()[None, :, None]
+    y = y.reshape(bsz, 1, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z[:, None, :]), p.out_norm)
+    return x + y @ p.out_proj
+
+
+def init_ssm_cache(cfg, batch_size: int, device) -> Dict[str, torch.Tensor]:
+    """Zeroed recurrent state {"ssm": (L,B,H,P,N) fp32, "conv":
+    (L,B,W-1,C) in the model's dtype}."""
+    dev = resolve_device(device)
+    return {
+        "ssm": torch.zeros((cfg.n_layers, batch_size, cfg.ssm_n_heads,
+                            cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=dev),
+        "conv": torch.zeros((cfg.n_layers, batch_size,
+                             cfg.ssm_conv_width - 1, conv_channels(cfg)),
+                            dtype=DTYPES[cfg.dtype], device=dev),
+    }
+
+
+class Mamba2LM:
+    """Attention-free SSD language model (mamba2-1.3b)."""
+
+    def __init__(self, cfg):
+        if cfg.family != "ssm":
+            raise ValueError(f"Mamba2LM needs an 'ssm' config, got "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+
+    def init(self, seed: int = 0, device=None) -> Mamba2Params:
+        """Seeded weights on ``device`` (``None`` = the card)."""
+        return init_mamba2_params(self.cfg, seed, device)
+
+    def logits_fn(self, params: Mamba2Params, batch):
+        """Full-sequence forward → (logits (B,S,V), labels)."""
+        tokens = batch["tokens"]
+        x = params.embed[tokens.long()]
+        for blk in params.blocks:
+            x = mamba_block_train(blk, self.cfg, x)
+        x = rms_norm(x, params.final_norm)
+        return x @ params.lm_head, tokens
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """Zeroed recurrent state (``max_len`` is unused: the state does
+        not grow with the sequence)."""
+        del max_len
+        return init_ssm_cache(self.cfg, batch_size, device)
+
+    def decode_step(self, params: Mamba2Params, cache, batch):
+        """One token for every sequence.  batch: tokens (B,1) (a
+        ``cache_len`` is accepted and unused).  Returns (logits (B,V),
+        cache); the cache is updated in place."""
+        x = params.embed[batch["tokens"].long()]               # (B,1,d)
+        for i, blk in enumerate(params.blocks):
+            x = mamba_block_decode(blk, self.cfg, x, cache["ssm"][i],
+                                   cache["conv"][i])
+        x = rms_norm(x, params.final_norm)
+        return x[:, 0] @ params.lm_head, cache

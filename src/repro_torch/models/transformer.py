@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from .layers import (
     apply_rope,
-    causal_attention,
+    blockwise_attention,
     decode_attention,
     rms_norm,
     rope_angles,
@@ -72,7 +72,7 @@ class DecoderLM:
             h = rms_norm(x, blk.ln1)
             q, k, v = _qkv(blk.attn, cfg, h)
             q, k = apply_rope(q, angles), apply_rope(k, angles)
-            out = causal_attention(q, k, v)
+            out = blockwise_attention(q, k, v, causal=True)
             x = x + out.reshape(x.shape[0], x.shape[1], -1) @ blk.attn.wo
             x = x + ffn_apply(blk.ffn, rms_norm(x, blk.ln2))
         x = rms_norm(x, params.final_norm)

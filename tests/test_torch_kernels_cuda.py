@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels held against their plain PyTorch versions
-on the card, at small shapes that the serving path does not reach (GQA
-groups 1–8, head dims 16–64, pages of 4–16, split counts that do not
-divide the page count, ragged lane blocks).
+on the card, at small shapes that the models and the serving path do not
+reach (GQA groups 1–8, head dims 16–64, pages of 4–16, split counts that
+do not divide the page count, ragged lane blocks, sequence lengths that no
+tile or chunk divides, several SSD groups).
 
 Every test here needs a CUDA device and skips without one; this module
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -16,12 +17,33 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_prefill as tpp
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import ssd_scan as tss
 
 TOLS = {"float32": dict(rtol=3e-5, atol=3e-5),
         "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+SSD_TOLS = {"float32": dict(rtol=2e-4, atol=2e-4),
+            "bfloat16": dict(rtol=4e-2, atol=4e-2)}
+
+FLASH_SHAPES = [
+    # (B, Sq, Sk, H, Hkv, D, bq, bk), as tests/test_kernels.py; the JAX
+    # kernel's blocks bq and bk only order the sums
+    (1, 64, 64, 4, 4, 16, 32, 32),
+    (2, 128, 128, 4, 2, 32, 64, 32),
+    (1, 128, 128, 8, 1, 64, 128, 128),   # MQA, full-seq blocks
+    (2, 96, 96, 2, 2, 16, 32, 32),       # non-pow2 seq
+]
+
+SSD_SHAPES = [
+    # (B, S, H, P, G, N, chunk), as tests/test_kernels.py
+    (2, 64, 4, 8, 2, 16, 16),
+    (1, 128, 2, 16, 1, 32, 32),
+    (2, 32, 8, 8, 4, 8, 32),   # single chunk
+]
 
 PAGED_SHAPES = [
     # (B, H, Hkv, D, n_phys, page, n_pages), as tests/test_kernels.py
@@ -75,6 +97,32 @@ def _packed_inputs(seed, shared_page=False, c=16):
                      [0] * pad, np.int32)
     ctx = np.asarray([page + n for n in lens], np.int32)
     return [q, kp, vp, rows, seg, pos, ctx]
+
+
+def _flash_inputs(shape, seed):
+    b, sq, sk, h, hkv, d = shape[:6]
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, d)).astype(np.float32)]
+
+
+def _ssd_inputs(shape, seed, d_skip=False, decay=1.0):
+    """x, dt, a, b, c (+ d_skip) for one SSD shape, as numpy fp32; dt is
+    positive (a softplus) and a negative, as in the model.  ``decay``
+    scales a: at 8 the log-decay of a 16-position chunk sums far past 88,
+    so a kernel that takes exp() above the diagonal overflows."""
+    b, s, h, p, g, n = shape[:6]
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = (-np.exp(rng.standard_normal((h,)) * 0.5) * decay).astype(np.float32)
+    bb = (rng.standard_normal((b, s, g, n)) * 0.3).astype(np.float32)
+    cc = (rng.standard_normal((b, s, g, n)) * 0.3).astype(np.float32)
+    out = [x, dt, a, bb, cc]
+    if d_skip:
+        out.append(rng.standard_normal((h,)).astype(np.float32))
+    return out
 
 
 @pytest.fixture
@@ -170,3 +218,73 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     p[6] = p[6].cpu()
     with pytest.raises(ValueError, match="one device"):
         ops.packed_prefill_attention(*p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES + [
+    (2, 40, 40, 4, 2, 16),        # no tile divides Sq
+    (1, 200, 200, 6, 3, 64),      # several tiles, a ragged last one
+])
+def test_flash_kernel_matches_plain(cuda_device, shape, dtype, causal):
+    t = _on(_flash_inputs(shape, seed=13), dtype, cuda_device)
+    before = tfa.launches.count
+    out = ops.flash_attention(*t, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches.count == before + 1
+    out = _np(out)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(
+        out, _np(tfa.flash_attention_plain(*t, causal=causal)),
+        **TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_cross_lengths_and_refusal(cuda_device):
+    """Sq != Sk is computed when not causal and refused when causal."""
+    t = _on(_flash_inputs((2, 24, 70, 4, 1, 32), seed=14), "float32",
+            cuda_device)
+    np.testing.assert_allclose(
+        _np(ops.flash_attention(*t, causal=False)),
+        _np(tfa.flash_attention_plain(*t, causal=False)), **TOLS["float32"])
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(*t, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SHAPES + [
+    (2, 40, 4, 8, 2, 16, 16),      # ragged last chunk, two groups
+    (1, 300, 4, 64, 1, 128, 128),  # the Mamba2 widths, ragged
+])
+@pytest.mark.parametrize("d_skip", [False, True])
+def test_ssd_kernel_matches_plain(cuda_device, shape, dtype, d_skip):
+    chunk = shape[6]
+    arrays = _ssd_inputs(shape, seed=15, d_skip=d_skip)
+    t = _on(arrays, dtype, cuda_device)
+    t[1], t[2] = t[1].float(), t[2].float()          # dt, a in fp32
+    ds = t[5].float() if d_skip else None
+    before = tss.launches.count
+    y, final = ops.ssd(*t[:5], chunk=chunk, d_skip=ds)
+    torch.cuda.synchronize()
+    assert tss.launches.count == before + 1
+    assert y.dtype == t[0].dtype and final.dtype == torch.float32
+    want_y, want_f = tss.ssd_scan_plain(*t[:5], chunk=chunk, d_skip=ds)
+    assert np.all(np.isfinite(_np(y)))
+    np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOLS[dtype])
+    np.testing.assert_allclose(_np(final), _np(want_f), **SSD_TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_strong_decay_stays_finite(cuda_device):
+    """Log-decay summing past 88 inside a chunk: exp() is taken only on
+    and below the diagonal, so nothing overflows into inf * 0."""
+    arrays = _ssd_inputs((1, 48, 2, 8, 1, 16), seed=16, decay=8.0)
+    t = _on(arrays, "float32", cuda_device)
+    y, final = ops.ssd(*t, chunk=16)
+    assert np.all(np.isfinite(_np(y))) and np.all(np.isfinite(_np(final)))
+    want_y, want_f = tss.ssd_scan_plain(*t, chunk=16)
+    np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOLS["float32"])
+    np.testing.assert_allclose(_np(final), _np(want_f),
+                               **SSD_TOLS["float32"])
