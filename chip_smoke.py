@@ -13,17 +13,23 @@ Phases, in order; each prints one line and any failure exits non-zero:
    and bf16, with kernel, plain, library (SDPA over the gathered keys) and
    bound times;
 4. the packed-prefill kernel against its plain version at the packed
-   chunk's shapes (C = 264 lanes, 1 and 8 segments), likewise;
+   chunk's shapes (C = 264 lanes, 1 and 8 segments), likewise, each row
+   naming the variant that ran (``wgmma`` for bf16, ``fma`` for fp32) and
+   the device time of one launch read from ``torch.profiler`` beside the
+   CUDA-event mean;
 5. serving TinyLlama-1.1B at full width in fp32 (seeded random weights)
    under the ``chunked`` and ``packed`` schedulers, holding the greedy
    tokens against the model's contiguous-cache decode;
 6. serving TinyLlama-1.1B in bf16 (its config's dtype) under ``packed``:
-   16 requests, every one must complete, both kernels must launch;
+   16 requests, every one must complete, both kernels must launch, and
+   every packed launch must be the tensor-core variant, 22 (one a layer)
+   per packed chunk;
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
    as Zamba2 and Hkv = 4 as TinyLlama, D = 64), fp32 and bf16, with
    kernel, plain, library (one causal GQA ``scaled_dot_product_attention``
-   call) and bound times;
+   call) and bound times, the variant and the profiler's device time, as
+   in phase 4;
 8. the SSD kernel against its plain version at the Mamba2 block's shapes
    (B = 4, S = 1024 and 1000, H = 64, P = 64, N = 128 as Mamba2-1.3B and
    64 as Zamba2-1.2B, chunk 128, with d_skip), fp32 and bf16, likewise
@@ -38,8 +44,10 @@ Phases, in order; each prints one line and any failure exits non-zero:
 10. both models in bf16 (their configs' dtype): ``logits_fn`` over 4
    prompts of 1024 tokens, then 32 greedy decode steps at B = 4 from a
    fresh cache fed the prefill's greedy tokens; wall times, tokens/s and
-   launches; everything finite, every kernel of the path launched;
-11. the kernel table as one JSON line, the card line, and the result line
+   launches; everything finite, every kernel of the path launched, and
+   Zamba2's 7 flash launches all the tensor-core variant;
+11. the kernel table as one JSON line (each row with the variant of the
+   main path), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM, 989 TFLOP/s
@@ -112,6 +120,34 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def profiled_ms(torch, timer, fn, names, iters: int = 10):
+    """Device time of one call of ``fn`` from ``torch.profiler``: the
+    kernels whose names contain one of ``names``, summed over ``iters``
+    calls (the L2 flushed before each, as the event timer does) and
+    divided by ``iters``.  None where the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if any(n in evt.key for n in names):
+            t = getattr(evt, "self_device_time_total", None)
+            if t is None:
+                t = getattr(evt, "self_cuda_time_total", 0.0)
+            total += t
+    return total / iters / 1e3 if total > 0 else None
+
+
+PACKED_KERNELS = ("packed_prefill_kernel", "plan_kernel", "partial_kernel",
+                  "combine_kernel")
+FLASH_KERNELS = ("flash_attention_kernel", "flash_tc_kernel")
+
+
 def sdpa_call(q, k, v, mask):
     """One ``scaled_dot_product_attention`` call computing the same
     function (the yardstick ``library_ms``; the port never calls it).
@@ -128,6 +164,10 @@ def close_enough(out, want, tol: float) -> float:
     w = want.float().cpu().numpy()
     np.testing.assert_allclose(o, w, rtol=tol, atol=tol)
     return float(np.max(np.abs(o - w)))
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -197,7 +237,7 @@ def phase_paged(torch, timer, dtype):
     lib_ms = timer.ms(sdpa_call(q[:, :, None, :], kg, vg,
                                 mask[:, None, None, :]))
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    return {"name": "paged_attention", "route": "cuda",
+    return {"name": "paged_attention", "route": "cuda", "variant": "fma",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": PAGED_TPU, "max_abs_err": errs[None],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -251,8 +291,14 @@ def phase_packed(torch, timer, dtype, n_segs):
     (q, kp, vp, rows, seg, pos, ctx), (rows_np, seg_np, pos_np, ctx_np) = \
         packed_case(torch, dtype, n_segs)
     want = pp.packed_prefill_plain(q, kp, vp, rows, seg, pos, ctx)
+    variant = pp.kernel_variant(q.dtype, q.shape[2], q.shape[1] // kp.shape[2],
+                                q.device)
+    before = pp.launches.of(variant)
     out = pp.packed_prefill_attention(q, kp, vp, rows, seg, pos, ctx)
     torch.cuda.synchronize()
+    if pp.launches.of(variant) != before + 1:
+        raise AssertionError(f"packed_prefill[S={n_segs}]: the {variant} "
+                             f"variant did not launch")
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"packed_prefill[S={n_segs}]: non-finite")
     if not (out[torch.from_numpy(seg_np < 0).to(DEVICE)] == 0).all():
@@ -271,6 +317,8 @@ def phase_packed(torch, timer, dtype, n_segs):
     flops = 4.0 * h * d * float((pos_np[valid] + 1).sum())
     kernel_ms = timer.ms(lambda: pp.packed_prefill_attention(
         q, kp, vp, rows, seg, pos, ctx))
+    device_ms = profiled_ms(torch, timer, lambda: pp.packed_prefill_attention(
+        q, kp, vp, rows, seg, pos, ctx), PACKED_KERNELS)
     plain_ms = timer.ms(lambda: pp.packed_prefill_plain(
         q, kp, vp, rows, seg, pos, ctx))
     n_pages = rows.shape[1]
@@ -284,10 +332,12 @@ def phase_packed(torch, timer, dtype, n_segs):
                                 vg, mask[None, None]))
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     return {"name": "packed_prefill_attention", "route": "cuda",
+            "variant": variant,
             "source": "src/repro_torch/kernels/csrc/packed_prefill.cu",
             "replaces": PACKED_TPU, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "profiler_ms": device_ms}
 
 
 # ------------------------------------------------------- phases 5 and 6
@@ -412,6 +462,7 @@ def serve_bf16(torch):
         launches = {"paged_attention": paged_attention.launches.count,
                     "packed_prefill_attention":
                         packed_prefill.launches.count}
+        packed_tc = packed_prefill.launches.of("wgmma")
         stats = session.stats()["totals"]
     finally:
         session.close()
@@ -420,6 +471,13 @@ def serve_bf16(torch):
                              f"{n_new} tokens ({[len(o) for o in outs]})")
     if min(launches.values()) < 1:
         raise AssertionError(f"bf16: a kernel never launched: {launches}")
+    want_packed = cfg.n_layers * stats["packed_chunks"]
+    if not packed_tc == launches["packed_prefill_attention"] == want_packed:
+        raise AssertionError(
+            f"bf16: packed launches {launches['packed_prefill_attention']} "
+            f"(wgmma variant {packed_tc}), want {want_packed}: one "
+            f"tensor-core launch a layer for each of "
+            f"{stats['packed_chunks']} packed chunks")
     ttft = [hnd.ttft() for hnd in handles]
     itl = [g for hnd in handles for g in hnd.itl()]
     summary = {
@@ -431,7 +489,7 @@ def serve_bf16(torch):
         "itl_p50_ms": float(np.percentile(itl, 50)) * 1e3,
         "itl_p99_ms": float(np.percentile(itl, 99)) * 1e3,
         "steps": stats["steps"], "packed_chunks": stats["packed_chunks"],
-        "launches": launches}
+        "launches": launches, "packed_wgmma_launches": packed_tc}
     return summary, launches
 
 
@@ -451,12 +509,17 @@ def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7):
         np.float32)).to(DEVICE, dt) for shape in
         ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
     want = fa.flash_attention_plain(q, k, v, causal=True)
+    variant = fa.kernel_variant(q.dtype, d, q.device)
+    before = fa.launches.of(variant)
     out = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    if fa.launches.of(variant) != before + 1:
+        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}]: the "
+                             f"{variant} variant did not launch")
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}]: "
                              f"non-finite")
-    row = {"name": "flash_attention", "route": "cuda",
+    row = {"name": "flash_attention", "route": "cuda", "variant": variant,
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": FLASH_TPU,
            "max_abs_err": close_enough(out, want, TOL[dtype])}
@@ -468,6 +531,9 @@ def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7):
     flops = 4.0 * b * h * d * s * (s + 1) / 2
     qt, kt, vt = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
     row["ms"] = timer.ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    row["profiler_ms"] = profiled_ms(
+        torch, timer, lambda: fa.flash_attention(q, k, v, causal=True),
+        FLASH_KERNELS)
     row["plain_ms"] = timer.ms(
         lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5)
     row["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
@@ -516,7 +582,7 @@ def phase_ssd(torch, timer, dtype, s, n, timed, seed=8):
     if not (torch.isfinite(y.float()).all() and
             torch.isfinite(final).all()):
         raise AssertionError(f"ssd_scan[S={s}, N={n}]: non-finite")
-    row = {"name": "ssd_scan", "route": "cuda",
+    row = {"name": "ssd_scan", "route": "cuda", "variant": "fma",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": SSD_TPU,
            "max_abs_err": max(close_enough(y, want_y, SSD_TOL[dtype]),
@@ -551,6 +617,11 @@ def read_launches():
     from repro_torch.kernels import flash_attention, ssd_scan
     return {"ssd_scan": ssd_scan.launches.count,
             "flash_attention": flash_attention.launches.count}
+
+
+def flash_tc_launches():
+    from repro_torch.kernels import flash_attention
+    return flash_attention.launches.of("wgmma")
 
 
 def perturbed_model(torch, arch, dtype=None, seed=0):
@@ -653,6 +724,7 @@ def model_bf16(torch, arch, b=4, s=1024, n_new=32):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = read_launches()
+        flash_tc = flash_tc_launches()
     if not finite:
         raise AssertionError(f"{arch} bf16: non-finite logits")
     want = ["ssd_scan"] + (["flash_attention"] if cfg.family == "hybrid"
@@ -660,13 +732,19 @@ def model_bf16(torch, arch, b=4, s=1024, n_new=32):
     if min(launches[k] for k in want) < 1:
         raise AssertionError(f"{arch} bf16: a kernel never launched: "
                              f"{launches}")
+    n_sites = getattr(model, "n_sites", 0)
+    if not flash_tc == launches["flash_attention"] == n_sites:
+        raise AssertionError(
+            f"{arch} bf16: flash launches {launches['flash_attention']} "
+            f"(wgmma variant {flash_tc}), want the tensor-core variant at "
+            f"each of {n_sites} attention sites of the forward")
     del params, cache
     torch.cuda.empty_cache()
     summary = {"model": arch, "batch": b, "prompt_tokens": s,
                "prefill_s": t1 - t0, "prefill_tok_s": b * s / (t1 - t0),
                "decode_steps": n_new, "decode_s": t2 - t1,
                "decode_tok_s": b * n_new / (t2 - t1),
-               "launches": launches}
+               "launches": launches, "flash_wgmma_launches": flash_tc}
     return summary, launches
 
 
@@ -705,8 +783,9 @@ def main() -> int:
             t0 = time.perf_counter()
             row = phase_packed(torch, timer, dtype, n_segs)
             kernels[("packed", dtype, n_segs)] = row
-            say(f"[4 packed {dtype} S={n_segs}] max_abs_err "
-                f"{row['max_abs_err']:.3g}; ms {row['ms']:.4f} plain "
+            say(f"[4 packed {dtype} S={n_segs}] variant {row['variant']} "
+                f"max_abs_err {row['max_abs_err']:.3g}; ms {row['ms']:.4f} "
+                f"profiler {fmt_ms(row['profiler_ms'])} plain "
                 f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
                 f"bound {row['bound_ms']:.4f} ({row['bound_by']}) [{card}] "
                 f"{time.perf_counter() - t0:.1f} s")
@@ -728,9 +807,12 @@ def main() -> int:
                 row = phase_flash(torch, timer, dtype, s, hkv,
                                   timed=s == 1024)
                 kernels[("flash", dtype, hkv, s)] = row
-                say(f"[7 flash {dtype} S={s} Hkv={hkv}] max_abs_err "
+                say(f"[7 flash {dtype} S={s} Hkv={hkv}] variant "
+                    f"{row['variant']} max_abs_err "
                     f"{row['max_abs_err']:.3g}" + (
-                        f"; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                        f"; ms {row['ms']:.4f} profiler "
+                        f"{fmt_ms(row['profiler_ms'])} plain "
+                        f"{row['plain_ms']:.4f} "
                         f"library {row['library_ms']:.4f} bound "
                         f"{row['bound_ms']:.4f} ({row['bound_by']}) "
                         f"[{card}]" if "ms" in row else "") +
@@ -767,7 +849,7 @@ def main() -> int:
                       (("flash", "bfloat16", 32, 1024), "flash_attention"),
                       (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
         row = {k: v for k, v in kernels[key].items()
-               if k not in ("errs", "splits")}
+               if k not in ("errs", "splits", "profiler_ms")}
         row["launches"] = launches[name]
         table.append(row)
     say(json.dumps({"kernels": table}))

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -35,21 +35,29 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Kernel launches made through one wrapper (thread-safe).  A wrapper
-    adds one where it launches its kernel and nowhere else, so a run can
-    show that the main path went through the kernel."""
+    """Kernel launches made through one wrapper (thread-safe), in all and
+    by variant.  A wrapper adds one where it launches its kernel and
+    nowhere else, naming the variant it launched, so a run can show that
+    the main path went through the kernel, and through which version."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.count = 0
+        self.by_variant: Dict[str, int] = {}
 
-    def add(self) -> None:
+    def add(self, variant: str) -> None:
         with self._lock:
             self.count += 1
+            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
+
+    def of(self, variant: str) -> int:
+        """Launches of one variant since the last reset."""
+        return self.by_variant.get(variant, 0)
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+            self.by_variant = {}
 
 
 def find_nvcc() -> str:
@@ -69,6 +77,32 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(out_dir: Path, names: Sequence[str], extra=()) -> Dict[str, str]:
+    """Run one ``nvcc`` per source, all at once, into ``out_dir``; returns
+    name → compiler output.  Raises on any failure."""
+    nvcc = find_nvcc()
+    procs = []
+    for name in names:
+        tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors, logs = [], {}
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        logs[name] = log.decode(errors="replace")
+        if proc.returncode != 0:
+            errors.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return logs
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every source that has no up-to-date library yet, all in
     parallel; returns name → library path.  Raises on any failure."""
@@ -76,28 +110,19 @@ def build_all() -> Dict[str, Path]:
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [n for n in SOURCES if not paths[n].exists()]
-    if not todo:
-        return paths
-    nvcc = find_nvcc()
-    procs = []
-    for name in todo:
-        tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for name, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
-                          f"{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, paths[name])
-    if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    if todo:
+        _compile(out_dir, todo)
     return paths
+
+
+def ptxas_report() -> Dict[str, str]:
+    """Compile every source once more with ``-Xptxas -v`` (into
+    ``build/kernels/ptxas/``, never loaded) and return name → the
+    compiler's report: registers, shared memory and spill stores/loads of
+    each kernel instance."""
+    out_dir = BUILD_ROOT / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return _compile(out_dir, SOURCES, extra=("-Xptxas", "-v"))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -130,3 +155,10 @@ def check(name: str, err: int) -> None:
     if err != 0:
         why = library(name).repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch ({why})")
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels.build: print each kernel's registers,
+    # shared memory and spills (needs nvcc; run on the machine with the card)
+    for _name, _log in ptxas_report().items():
+        print(f"== {_name}.cu\n{_log}")

@@ -1,32 +1,42 @@
-// Dense attention forward (flash attention) for Hopper.
+// Dense attention forward (flash attention) for Hopper: two variants.
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention.py::flash_attention (+ _flash_kernel).
 //
 // What it computes: q (B, Sq, H, D), k/v (B, Sk, Hkv, D) -> out (B, Sq, H, D)
-// in q's dtype; softmax(q k^T / sqrt(D)) v with an fp32 online softmax, the
-// scale applied to q in fp32 (as the TPU kernel).  GQA: query head h reads kv
-// head h / (H / Hkv), so K/V are never copied per head.  With `causal` the
-// mask is aligned top-left (query i sees keys 0..i, the TPU kernel's
-// convention); the wrapper admits causal calls with Sq == Sk only.
+// in q's dtype; softmax(q k^T / sqrt(D)) v with an fp32 online softmax.  GQA:
+// query head h reads kv head h / (H / Hkv), so K/V are never copied per
+// head.  With `causal` the mask is aligned top-left (query i sees keys
+// 0..i, the TPU kernel's convention); the wrapper admits causal calls with
+// Sq == Sk only.  Key tiles past the diagonal are skipped, the heaviest
+// query tiles are issued first, and ragged tails of Sq and Sk are masked.
 //
-// Grid: one block per (tile of kBlockQ query rows, head, batch).  The TPU grid
-// carried (m, l, acc) in VMEM across a sequential kv axis; here the kv walk is
-// a loop inside the block, over tiles of kBlockK keys, and with `causal` it
-// stops at the diagonal tile, so fully masked tiles cost nothing.  Tiles are
-// issued heaviest first (the last query tiles walk the most keys).  Ragged
-// tails of Sq and Sk are masked, so no length needs to divide a tile.
+// What bounds it on H100: operations.  At the models' shapes (B = 4,
+// S = 1024, H = 32, D = 64) the causal product is 17.2 GFLOP against
+// 67 MB of q, k, v and out (bf16): 0.017 ms at 989 TFLOP/s, 0.020 ms at
+// 3.35 TB/s, and the arithmetic intensity of one (query tile, key tile)
+// pair is far above the card's ~295 flops/byte.  So the design feeds the
+// tensor cores:
 //
-// Each of the 256 threads owns 4 query rows x 4 keys of the score tile (rows
-// 4 * (tid / 16) .., keys tid % 16 + 16 j) and the same 4 rows x D / 16
-// columns of the output, so the row statistics (m, l) of a thread's rows live
-// in its registers and are reduced across the 16 threads of a row group with
-// shuffles.
-//
-// What bounds it on H100: at the models' shapes (S ~ 1000, D = 64) the causal
-// product is ~2 * B * H * S^2 * D operations against a few MB of q, k, v, so
-// operations bound it.  This first version does QK^T and PV as fp32 FMAs from
-// shared memory; wgmma for both products and TMA-fed K/V tiles are later work.
+// * flash_attention_tc_launch -- bf16 with D = 64 or 128.  One warpgroup
+//   (128 threads) per tile of 64 query rows.  QK^T is wgmma m64n64k16 with
+//   Q and K read from shared memory in the 128-byte-swizzled layout; PV is
+//   wgmma m64n64k16 with P in registers (bf16, after the fp32 rescale) and
+//   V read through the descriptor's transpose bit.  Q, K and V tiles come in
+//   by TMA over 4-D tensor maps (D, heads, S, B) with box (64, 1, 64, 1),
+//   so a ragged S tail is zero-filled inside its own batch; K/V tiles sit
+//   in a ring of kStages stages completed on mbarriers, and each tile's
+//   copy overlaps the products of the tiles before it.  The scale is folded
+//   with log2(e) into exp2 on the fp32 scores.  Shared helpers:
+//   attn_tc.cuh.
+// * flash_attention_launch -- every other call (fp32, and bf16 with any
+//   other D): the first version, fp32 FMAs from shared memory.  Each of
+//   its 256 threads owns 4 query rows x 4 keys of a 64 x 64 score tile and
+//   the same 4 rows x D / 16 output columns.  fp32 stays off the tensor
+//   cores: its tolerance is 3e-5, and TF32 keeps about 1e-3.
+#include <cuda.h>
+
+#include "attn_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -195,6 +205,207 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- tensor-core variant
+
+namespace tcf {
+
+using namespace repro::tc;
+using repro::tc::kThreads;  // hides the FMA variant's 256
+
+constexpr int kStages = 2;  // K/V ring: tile t + 2 loads while t computes
+
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return kRows * D * 2;  // 64 rows (queries or keys) of D bf16
+}
+
+// Q, then kStages K tiles, then kStages V tiles, then the mbarriers
+// (Q, then one per stage), from a 1024-byte-aligned base.
+template <int D>
+constexpr size_t smem_bytes() {
+  return (1 + 2 * kStages) * tile_bytes<D>() + 8 * (1 + kStages) + 1024;
+}
+
+// Grid: one block per (query tile, head, batch), flattened so that every
+// (head, batch) of the heaviest query tile (the last: it walks the most
+// keys when causal) is issued before any lighter one.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ out, int B, int Sq, int Sk, int H,
+                int Hkv, int causal, float scale_log2) {
+  constexpr uint32_t kTile = tile_bytes<D>();
+  constexpr uint32_t kBlockBytes = kRows * 128;  // one 64-wide column block
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int per_tile = H * B;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile) * kRows;
+  const int hb = static_cast<int>(blockIdx.x) % per_tile;
+  const int h = hb % H, b = hb / H;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + kTile;                 // + stage * kTile
+  const uint32_t v_s = base + (1 + kStages) * kTile;  // + stage * kTile
+  const uint32_t bar = base + (1 + 2 * kStages) * kTile;  // Q; + 8 (1 + s)
+
+  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
+  const int n_kt = (k_end + kKeys - 1) / kKeys;
+
+  const CUtensorMap* map_k = &tk;
+  const CUtensorMap* map_v = &tv;
+  auto load_kv = [=](int t, int s) {
+    const uint32_t full = bar + 8 * (1 + s);
+    mbar_expect_tx(full, 2 * kTile);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_4d(k_s + s * kTile + cb * kBlockBytes, map_k, full, cb * 64,
+                  hk, t * kKeys, b);
+      tma_load_4d(v_s + s * kTile + cb * kBlockBytes, map_v, full, cb * 64,
+                  hk, t * kKeys, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(bar + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, kTile);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      tma_load_4d(q_s + cb * kBlockBytes, &tq, bar, cb * 64, h, q0, b);
+    for (int t = 0; t < kStages && t < n_kt; ++t) load_kv(t, t);
+  }
+
+  float o[D / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+  OnlineSoftmax sm;
+  sm.init();
+  const int row0 = q0 + 16 * warp + (lane >> 2);  // + 8 for the second half
+  const int col0 = 2 * (lane & 3);                // + 8 j + e
+
+  mbar_wait(bar, 0);
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t % kStages;
+    mbar_wait(bar + 8 * (1 + s), (t / kStages) & 1);
+    float sc[32];
+    scores<D>(sc, q_s, k_s + s * kTile);
+
+    const int k0 = t * kKeys;
+    const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      float x = sc[i] * scale_log2;
+      if (edge && (key >= Sk || (causal && key > row))) x = -INFINITY;
+      sc[i] = x;
+    }
+    float corr[2];
+    sm.step(sc, corr);
+    rescale<D>(o, corr);
+    accumulate_pv<D>(o, sc, v_s + s * kTile);
+
+    __syncthreads();  // every warp's products on stage s have completed
+    if (tid == 0 && t + kStages < n_kt) load_kv(t + kStages, s);
+  }
+
+  sm.finish();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= Sq) continue;
+    const float inv = 1.f / sm.l[half];
+    __nv_bfloat16* dst = out + (((size_t)b * Sq + row) * H + h) * D + col0;
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + cb * 64 + 8 * j) =
+            pack_bf16(o[cb][4 * j + 2 * half] * inv,
+                      o[cb][4 * j + 2 * half + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no
+// -lcuda at link time).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 (B, S, heads, D) tensor, innermost
+// first: (D, heads, S, B), box (64, 1, 64, 1), 128-byte swizzle, and
+// zero fill outside the tensor (the ragged S tail of each batch).
+cudaError_t encode(CUtensorMap* map, const void* ptr, int D, int heads, int S,
+                   int B) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int H, int Hkv, int causal, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode(&tq, q, D, H, Sq, B);
+  if (err == cudaSuccess) err = encode(&tk, k, D, Hkv, Sk, B);
+  if (err == cudaSuccess) err = encode(&tv, v, D, Hkv, Sk, B);
+  if (err == cudaSuccess) err = repro::allow_smem(flash_tc_kernel<D>,
+                                                  smem_bytes<D>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (long long)((Sq + kRows - 1) / kRows) * H * B;
+  flash_tc_kernel<D><<<(unsigned)blocks, kThreads, smem_bytes<D>(),
+                       stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+                                 B, Sq, Sk, H, Hkv, causal, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tcf
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
@@ -212,5 +423,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, D, causal,
                                  scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core variant: bf16 only, D = 64 or 128, every pointer 16-byte
+// aligned (TMA).  Returns cudaGetLastError() (or the encode failure).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* out, int B,
+                                         int Sq, int Sk, int H, int Hkv,
+                                         int D, int causal, float scale,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return tcf::launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale, s);
+  if (D == 128)
+    return tcf::launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
+                            s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

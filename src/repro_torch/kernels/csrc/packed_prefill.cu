@@ -1,4 +1,4 @@
-// Packed multi-prompt prefill attention for Hopper.
+// Packed multi-prompt prefill attention for Hopper: two variants.
 //
 // Replaces the TPU kernel
 // repro/kernels/packed_prefill.py::packed_prefill_attention (+ _packed_kernel).
@@ -6,25 +6,43 @@
 // What it computes: C query lanes q (C, H, D), each tagged with a segment id
 // (-1 = padding) and an absolute position.  A lane attends only to the keys
 // of its own segment's page run (page_rows[seg], through the pool
-// (P, page, Hkv, D)), causally up to its own position.  Pages at or past
-// seg_ctx[seg] are skipped.  Padding lanes, and any lane with nothing
-// visible, come out exactly 0.
+// (P, page, Hkv, D)), causally up to its own position: the
+// segment-indicator mask seg == si and key_pos <= pos.  Pages at or past
+// seg_ctx[seg] are never read; segments may share physical pages.  Padding
+// lanes, and any lane with nothing visible, come out exactly 0.
 //
-// Grid: one block per (kv head, block of kLanes lanes); the block holds
-// kLanes * G query rows.  The TPU grid walked (kv head, segment, page) with
-// ALL C lanes scoring against every segment's pages; here a block walks only
-// the segments that own one of its lanes, and for each only the pages up to
-// min(seg_ctx, furthest position among its lanes + 1), so the S-fold waste is
-// gone.  Nothing assumes that segments are laid end to end.
+// What bounds it on H100: at the engine's chunk (C = 264 lanes, H = 32,
+// Hkv = 4, D = 64, a few hundred to a thousand keys per segment) the whole
+// call is ~0.4 GFLOP over ~6 MB, so the bound is bytes (~0.002 ms); what
+// sets the time is latency and the schedule: how long the longest chain of
+// dependent key tiles is, and how many SMs have work.  The TPU grid walked
+// (kv head, segment, page) with all C lanes scoring against every
+// segment's pages; here no block walks more than one segment's keys.
 //
-// What bounds it on H100: at the engine's shapes (C = 264 lanes, G = 8,
-// D = 64, a few hundred keys per segment) the work is C * H * keys * D * 4
-// flops against (keys * Hkv * D * 2) K/V elements read once per lane block,
-// so it sits between the two rooflines.  This first version computes the
-// products as fp32 FMAs on CUDA cores from shared memory (fp32 online
-// softmax, as the TPU kernel); moving QK^T and PV onto wgmma, and splitting
-// the key walk so more than Hkv * ceil(C / kLanes) blocks fill the SMs, are
-// later work.
+// * packed_prefill_tc_launch -- bf16 with D = 64 or 128 and G = H / Hkv
+//   <= 64.  Three kernels.  (1) A one-block planner turns seg_ids,
+//   positions, seg_ctx and the page count into work items (lane block,
+//   segment, key range): a lane block is lanes = 64 / G lanes, so its
+//   lanes x G query rows of one kv head fill one 64-row warpgroup tile,
+//   and a key range is at most item_keys keys, so the critical path no
+//   longer grows with a rider's context.  The planner runs on the device:
+//   no host sync, and the grid of (2) is fixed from the shapes alone.
+//   (2) Blocks of one warpgroup walk the (item, kv head) pairs: K/V rows
+//   are gathered through the page row with cp.async (16 bytes a thread,
+//   two buffers, written in the 128-byte-swizzled layout), QK^T and PV are
+//   wgmma m64n64k16 as in the flash kernel (attn_tc.cuh), and each item
+//   writes an unnormalised fp32 (acc, m, l) partial for the rows of its
+//   segment.  wgmma rather than mma.sync: with lanes = 64 / G the gathered
+//   tile always has 64 rows, the rows of other segments are masked.
+//   (3) A combine kernel merges each row's partials, as the split-K
+//   combine of paged_attention.cu; a row with no partial (padding, or
+//   nothing visible) is written as exactly 0, never NaN.
+// * packed_prefill_launch -- every other call (fp32, and bf16 with any
+//   other D): the first version.  One block per (kv head, block of 16
+//   lanes) walks the segments that own one of its lanes, one after
+//   another, each only up to min(seg_ctx, furthest position + 1), with its
+//   products as fp32 FMAs from shared memory.
+#include "attn_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -199,6 +217,295 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- tensor-core variant
+
+namespace tcp {
+
+using namespace repro::tc;
+using repro::tc::kThreads;  // hides the FMA variant's 256
+
+// One key range of one segment's keys seen from one lane block:
+// {lane block, segment, range index, key_end of (block, segment)}.
+// Range r covers keys [r * item_keys, min((r + 1) * item_keys, key_end)).
+
+// Key end of segment s's live pages (pages at or past seg_ctx are never
+// read).
+__device__ __forceinline__ int live_keys(const int* seg_ctx, int s,
+                                         int page_size, int n_pages) {
+  return min((seg_ctx[s] + page_size - 1) / page_size, n_pages) * page_size;
+}
+
+__global__ void plan_kernel(const int* __restrict__ seg_ids,
+                            const int* __restrict__ positions,
+                            const int* __restrict__ seg_ctx,
+                            int4* __restrict__ items, int* __restrict__ count,
+                            int C, int lanes, int n_lb, int n_segs,
+                            int n_pages, int page_size, int item_keys) {
+  __shared__ int n;
+  if (threadIdx.x == 0) n = 0;
+  __syncthreads();
+  for (int lb = threadIdx.x; lb < n_lb; lb += blockDim.x) {
+    const int c0 = lb * lanes, c1 = min(C, c0 + lanes);
+    for (int c = c0; c < c1; ++c) {
+      const int s = seg_ids[c];
+      if (s < 0 || s >= n_segs) continue;
+      bool first = true;  // the first lane of segment s in this block
+      for (int i = c0; i < c && first; ++i) first = seg_ids[i] != s;
+      if (!first) continue;
+      int max_pos = -1;
+      for (int i = c; i < c1; ++i)
+        if (seg_ids[i] == s) max_pos = max(max_pos, positions[i]);
+      const int key_end =
+          min(live_keys(seg_ctx, s, page_size, n_pages), max_pos + 1);
+      const int n_ranges = (key_end + item_keys - 1) / item_keys;
+      if (n_ranges <= 0) continue;
+      const int at = atomicAdd(&n, n_ranges);
+      for (int r = 0; r < n_ranges; ++r)
+        items[at + r] = make_int4(lb, s, r, key_end);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) *count = n;
+}
+
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return kRows * D * 2;
+}
+
+// Q, then two K and two V buffers, from a 1024-byte-aligned base.
+template <int D>
+constexpr size_t smem_bytes() {
+  return 5 * tile_bytes<D>() + 1024;
+}
+
+// Partial slot of (kv head, lane block, range): 64 rows of D fp32 (acc)
+// and of (m, l).
+__device__ __forceinline__ size_t slot(int hk, int lb, int r, int n_lb,
+                                       int max_ranges) {
+  return ((size_t)hk * n_lb + lb) * max_ranges + r;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+partial_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k_pages,
+               const __nv_bfloat16* __restrict__ v_pages,
+               const int* __restrict__ page_rows,
+               const int* __restrict__ seg_ids,
+               const int* __restrict__ positions,
+               const int4* __restrict__ items, const int* __restrict__ count,
+               float* __restrict__ acc_part, float2* __restrict__ ml_part,
+               int C, int Hkv, int G, int page_size, int n_pages, int lanes,
+               int n_lb, int max_ranges, int item_keys, float scale_log2) {
+  constexpr uint32_t kTile = tile_bytes<D>();
+  constexpr int kChunks = D / 8;  // 16-byte chunks of one row
+  const int H = Hkv * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, k_s = base + kTile, v_s = base + 3 * kTile;
+  const size_t slot_stride = (size_t)Hkv * D;
+  const size_t page_stride = (size_t)page_size * slot_stride;
+  const int n_work = *count * Hkv;
+
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int4 it = items[w / Hkv];
+    const int hk = w % Hkv, lb = it.x, s = it.y, r = it.z;
+    const int key_lo = r * item_keys;
+    const int key_hi = min(key_lo + item_keys, it.w);
+    const int* row_pages = page_rows + (size_t)s * n_pages;
+
+    // this thread's two rows: lane tag and position, live only if the
+    // row's lane belongs to segment s
+    bool live[2];
+    int pos[2], row[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      row[half] = 16 * warp + (lane >> 2) + 8 * half;
+      const int c = lb * lanes + row[half] / G;
+      live[half] = row[half] < lanes * G && c < C && seg_ids[c] == s;
+      pos[half] = live[half] ? positions[c] : -1;
+    }
+
+    __syncthreads();  // the previous item's readers of Q and K/V are done
+    for (int i = tid; i < kRows * kChunks; i += kThreads) {
+      const int rr = i / kChunks, col = (i % kChunks) * 8;
+      const int c = lb * lanes + rr / G;
+      const bool ok = rr < lanes * G && c < C;
+      const __nv_bfloat16* src =
+          ok ? q + ((size_t)c * H + (size_t)hk * G + rr % G) * D + col : q;
+      cp_async16(q_s + sw128_offset(kRows, rr, col), src, ok);
+    }
+    auto load_kv = [=](int k0, int buf) {
+      for (int i = tid; i < kKeys * kChunks; i += kThreads) {
+        const int t = i / kChunks, col = (i % kChunks) * 8;
+        const int kp = k0 + t;
+        const bool ok = kp < key_hi;
+        const size_t off =
+            ok ? (size_t)row_pages[kp / page_size] * page_stride +
+                     (size_t)(kp % page_size) * slot_stride +
+                     (size_t)hk * D + col
+               : 0;
+        const uint32_t dst = sw128_offset(kKeys, t, col) + buf * kTile;
+        cp_async16(k_s + dst, k_pages + off, ok);
+        cp_async16(v_s + dst, v_pages + off, ok);
+      }
+    };
+    load_kv(key_lo, 0);
+    cp_async_commit();
+
+    float o[D / 64][32];
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+    OnlineSoftmax sm;
+    sm.init();
+    const int col0 = 2 * (lane & 3);
+    const int n_tiles = (key_hi - key_lo + kKeys - 1) / kKeys;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t & 1;
+      if (t + 1 < n_tiles) {
+        load_kv(key_lo + (t + 1) * kKeys, buf ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();  // cp.async writes -> wgmma's async-proxy reads
+      __syncthreads();
+      float sc[32];
+      scores<D>(sc, q_s, k_s + buf * kTile);
+      const int k0 = key_lo + t * kKeys;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int half = (i >> 1) & 1;
+        sc[i] = key < key_hi && key <= pos[half] ? sc[i] * scale_log2
+                                                 : -INFINITY;
+      }
+      float corr[2];
+      sm.step(sc, corr);
+      rescale<D>(o, corr);
+      accumulate_pv<D>(o, sc, v_s + buf * kTile);
+      __syncthreads();  // products on `buf` done before it is refilled
+    }
+
+    sm.finish();
+    const size_t sl = slot(hk, lb, r, n_lb, max_ranges);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!live[half]) continue;
+      const size_t at = sl * kRows + row[half];
+      float* dst = acc_part + at * D + col0;
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(dst + cb * 64 + 8 * j) =
+              make_float2(o[cb][4 * j + 2 * half],
+                          o[cb][4 * j + 2 * half + 1]);
+      if ((lane & 3) == 0) ml_part[at] = make_float2(sm.m[half], sm.l[half]);
+    }
+  }
+}
+
+// One block per (lane, kv head): out = sum_r acc_r 2^(m_r - M) /
+// sum_r l_r 2^(m_r - M) over the ranges r that hold a visible key of the
+// lane; no such range (padding, nothing visible) -> exactly 0.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const float* __restrict__ acc_part,
+               const float2* __restrict__ ml_part,
+               const int* __restrict__ seg_ids,
+               const int* __restrict__ positions,
+               const int* __restrict__ seg_ctx,
+               __nv_bfloat16* __restrict__ out, int Hkv, int G,
+               int page_size, int n_pages, int n_segs, int lanes, int n_lb,
+               int max_ranges, int item_keys) {
+  const int c = blockIdx.x, hk = blockIdx.y;
+  const int s = seg_ids[c];
+  int n = 0;
+  if (s >= 0 && s < n_segs) {
+    const int vis =
+        min(live_keys(seg_ctx, s, page_size, n_pages), positions[c] + 1);
+    n = vis > 0 ? (vis + item_keys - 1) / item_keys : 0;
+  }
+  const int lb = c / lanes, row0 = (c % lanes) * G;
+  const size_t sl0 = slot(hk, lb, 0, n_lb, max_ranges);
+  for (int i = threadIdx.x; i < G * D / 4; i += blockDim.x) {
+    const int g = i / (D / 4), d4 = i % (D / 4);
+    float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n > 0) {
+      const size_t at0 = sl0 * kRows + row0 + g;
+      float mx = -INFINITY;
+      for (int r = 0; r < n; ++r) mx = fmaxf(mx, ml_part[at0 + r * kRows].x);
+      float l = 0.f;
+      for (int r = 0; r < n; ++r) {
+        const size_t at = at0 + (size_t)r * kRows;
+        const float2 ml = ml_part[at];
+        const float w = fast_exp2(ml.x - mx);
+        const float4 a = reinterpret_cast<const float4*>(acc_part + at * D)[d4];
+        l += ml.y * w;
+        res.x += a.x * w;
+        res.y += a.y * w;
+        res.z += a.z * w;
+        res.w += a.w * w;
+      }
+      const float inv = 1.f / l;
+      res.x *= inv;
+      res.y *= inv;
+      res.z *= inv;
+      res.w *= inv;
+    }
+    const uint2 packed = make_uint2(pack_bf16(res.x, res.y),
+                                    pack_bf16(res.z, res.w));
+    *reinterpret_cast<uint2*>(
+        out + ((size_t)c * Hkv * G + (size_t)hk * G + g) * D + d4 * 4) =
+        packed;
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* page_rows, const void* seg_ids, const void* positions,
+           const void* seg_ctx, void* out, void* items, void* count,
+           void* acc_part, void* ml_part, int C, int Hkv, int G,
+           int page_size, int n_segs, int n_pages, int lanes, int item_keys,
+           int max_ranges, int grid, float scale, cudaStream_t stream) {
+  const int n_lb = (C + lanes - 1) / lanes;
+  const int* seg = static_cast<const int*>(seg_ids);
+  const int* pos = static_cast<const int*>(positions);
+  const int* ctx = static_cast<const int*>(seg_ctx);
+  plan_kernel<<<1, 256, 0, stream>>>(seg, pos, ctx, static_cast<int4*>(items),
+                                     static_cast<int*>(count), C, lanes, n_lb,
+                                     n_segs, n_pages, page_size, item_keys);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = repro::allow_smem(partial_kernel<D>, smem_bytes<D>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  partial_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pages),
+      static_cast<const __nv_bfloat16*>(v_pages),
+      static_cast<const int*>(page_rows), seg, pos,
+      static_cast<const int4*>(items), static_cast<const int*>(count),
+      static_cast<float*>(acc_part), static_cast<float2*>(ml_part), C, Hkv,
+      G, page_size, n_pages, lanes, n_lb, max_ranges, item_keys,
+      scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  combine_kernel<D><<<dim3(C, Hkv), kThreads, 0, stream>>>(
+      static_cast<const float*>(acc_part),
+      static_cast<const float2*>(ml_part), seg, pos, ctx,
+      static_cast<__nv_bfloat16*>(out), Hkv, G, page_size, n_pages, n_segs,
+      lanes, n_lb, max_ranges, item_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tcp
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
@@ -220,5 +527,36 @@ extern "C" int packed_prefill_launch(const void* q, const void* k_pages,
     return launch<__nv_bfloat16>(q, k_pages, v_pages, page_rows, seg_ids,
                                  positions, seg_ctx, out, C, Hkv, G, D,
                                  page_size, n_segs, n_pages, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core variant: bf16 only, D = 64 or 128, lanes * G <= 64 rows.
+// Scratch from the caller: items (int4, at least n_lb * min(lanes, n_segs)
+// * max_ranges), count (one int), acc_part (Hkv * n_lb * max_ranges * 64 *
+// D floats), ml_part (Hkv * n_lb * max_ranges * 64 float2), where n_lb =
+// ceil(C / lanes) and max_ranges = ceil(n_pages * page_size / item_keys).
+// `grid` blocks walk the (item, kv head) pairs.  Returns
+// cudaGetLastError().
+extern "C" int packed_prefill_tc_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_rows, const void* seg_ids, const void* positions,
+    const void* seg_ctx, void* out, void* items, void* count, void* acc_part,
+    void* ml_part, int C, int Hkv, int G, int D, int page_size, int n_segs,
+    int n_pages, int lanes, int item_keys, int max_ranges, int grid,
+    float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes * G > repro::tc::kRows || item_keys < 1 ||
+      grid < 1 || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64)
+    return tcp::launch<64>(q, k_pages, v_pages, page_rows, seg_ids, positions,
+                           seg_ctx, out, items, count, acc_part, ml_part, C,
+                           Hkv, G, page_size, n_segs, n_pages, lanes,
+                           item_keys, max_ranges, grid, scale, s);
+  if (D == 128)
+    return tcp::launch<128>(q, k_pages, v_pages, page_rows, seg_ids,
+                            positions, seg_ctx, out, items, count, acc_part,
+                            ml_part, C, Hkv, G, page_size, n_segs, n_pages,
+                            lanes, item_keys, max_ranges, grid, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,26 +1,32 @@
-"""Dense attention forward: the hand-written Hopper kernel, its wrapper and
-its plain PyTorch version.
+"""Dense attention forward: the hand-written Hopper kernels, their wrapper
+and the plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
-(+ ``_flash_kernel``).  The kernel is ``csrc/flash_attention.cu``: one
-block per (batch, head, tile of 64 query rows), walking key tiles of 64
-only up to the diagonal when causal, with the kv head taken as
-``h / group`` (GQA without copying K/V) and an fp32 online softmax.  Any
-Sq and Sk work: the ragged tails are masked in the kernel, where the TPU
-dispatch asked for ``Sq % block_q == 0``.
+(+ ``_flash_kernel``).  The kernels are in ``csrc/flash_attention.cu``;
+both take one block per (tile of 64 query rows, head, batch), walk key
+tiles of 64 only up to the diagonal when causal, read kv head
+``h / group`` (GQA without copying K/V) and keep an fp32 online softmax.
+Any Sq and Sk work: the ragged tails are masked in the kernel, where the
+TPU dispatch asked for ``Sq % block_q == 0``.
 
 Causal alignment: the TPU kernel aligns the mask top-left (query i sees
 keys 0..i), the JAX oracle bottom-right (``tril(k=Sk - Sq)``).  The two
 agree only when Sq == Sk, which is every model call, so ``causal=True``
 accepts Sq == Sk only and raises otherwise.
 
-Bound on H100: at the models' shapes (S = 1000–1024, D = 64) the causal
-product is about 4 * B * H * S^2 / 2 * D operations against a few MB of
-q, k, v and out, so it is bound by operations.  This first version does
-its products as fp32 FMAs from shared memory (a 4 x 4 register tile per
-thread); moving QK^T and PV onto wgmma is later work.
+Bound on H100: operations.  At the models' shapes (S = 1000–1024, D = 64)
+the causal product is about 4 * B * H * S^2 / 2 * D operations against a
+few MB of q, k, v and out.  Two variants, chosen openly by
+:func:`kernel_variant` from the dtype and the head dim:
 
-Dispatch is by device: a CUDA tensor launches the kernel (or raises); a
+* ``"wgmma"`` — bf16 with D in :data:`TC_HEAD_DIMS` (every config that
+  reaches this kernel: TinyLlama and Zamba2 use 64, Qwen3 and Llama-3
+  128).  QK^T and PV on the tensor cores (wgmma), Q/K/V tiles by TMA into
+  a two-stage ring.  Needs 16-byte-aligned tensors (TMA).
+* ``"fma"`` — fp32 (its 3e-5 tolerance rules out TF32) and bf16 with any
+  other D: the first version, fp32 FMAs from shared memory.
+
+Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
 CPU tensor runs :func:`flash_attention_plain`.  There is no fallback.
 """
 
@@ -33,7 +39,8 @@ import torch
 
 from . import build, ref
 
-MAX_HEAD_DIM = 128   # the kernel's register tile covers D <= 128
+MAX_HEAD_DIM = 128   # the FMA kernel's register tile covers D <= 128
+TC_HEAD_DIMS = (64, 128)
 
 launches = build.LaunchCounter()
 
@@ -41,6 +48,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, out; B, Sq, Sk, H, Hkv, D, causal; scale; dtype; stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# the same without dtype (bf16 only)
+_TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+    [ctypes.c_float, ctypes.c_void_p]
+
+
+def kernel_variant(dtype, head_dim: int, device) -> str:
+    """The version that serves a call: ``"plain"`` on the CPU; on a CUDA
+    device ``"wgmma"`` for bf16 with D in :data:`TC_HEAD_DIMS`, else
+    ``"fma"``."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {device}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def _check_causal(q, k, causal: bool) -> None:
@@ -87,22 +111,33 @@ def _check(q, k, v, causal):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool):
-    """Launch ``csrc/flash_attention.cu`` on the current stream."""
+    """Launch the variant of ``csrc/flash_attention.cu`` that
+    :func:`kernel_variant` names, on the current stream."""
     _check(q, k, v, causal)
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
-    fn = build.function("flash_attention", "flash_attention_launch",
-                        _ARGTYPES)
+    variant = kernel_variant(q.dtype, d, q.device)
+    if variant == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+            raise ValueError("flash_attention: the bf16 tensor-core kernel "
+                             "needs 16-byte-aligned tensors (TMA)")
+        fn = build.function("flash_attention", "flash_attention_tc_launch",
+                            _TC_ARGTYPES)
+        extra = ()
+    else:
+        fn = build.function("flash_attention", "flash_attention_launch",
+                            _ARGTYPES)
+        extra = (_DTYPES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, sk, h, hkv, d, int(causal), 1.0 / math.sqrt(d),
-                 _DTYPES[q.dtype], stream)
+                 *extra, stream)
     build.check("flash_attention", err)
-    launches.add()
+    launches.add(variant)
     return out
 
 

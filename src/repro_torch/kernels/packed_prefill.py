@@ -1,26 +1,37 @@
-"""Packed multi-prompt prefill attention: the hand-written Hopper kernel,
-its wrapper and its plain PyTorch version.
+"""Packed multi-prompt prefill attention: the hand-written Hopper kernels,
+their wrapper and the plain PyTorch version.
 
 Replaces the TPU kernel
 ``repro/kernels/packed_prefill.py::packed_prefill_attention``
-(+ ``_packed_kernel``).  The kernel is ``csrc/packed_prefill.cu``: one
-block per (kv head, block of 16 lanes), walking only the segments that own
-one of its lanes and, for each, only the pages below both ``seg_ctx`` and
-its lanes' furthest position; fp32 online softmax under the
-segment-indicator causal mask ``seg == si and key_pos <= pos``.  Padding
-lanes (segment -1) are exactly 0.
+(+ ``_packed_kernel``).  Both kernels in ``csrc/packed_prefill.cu`` keep
+the segment-indicator causal mask ``seg == si and key_pos <= pos``, read
+no page at or past ``seg_ctx``, let segments share physical pages, and
+write padding lanes (segment -1) and lanes with nothing visible as exactly
+0.
 
-Bound on H100: at the engine's chunk shapes (C = prefill_chunk_tokens +
-max_batch lanes, a few hundred keys per segment) the kernel sits between
-the rooflines; this first version does its products as fp32 FMAs from
-shared memory, and its grid has only Hkv * ceil(C / 16) blocks.
+Bound on H100: bytes, at about 0.002 ms for the engine's chunk; what sets
+the time there is latency and the schedule (the longest chain of key tiles
+one block walks, and how many SMs have work).  Two variants, chosen openly
+by :func:`kernel_variant` from the dtype, the head dim and the group:
 
-Contract shared by both versions: ``seg_ctx[s]`` is at least one past the
+* ``"wgmma"`` — bf16 with D in :data:`TC_HEAD_DIMS` and G = H / Hkv <= 64.
+  A device-side planner splits the chunk into work items (lane block,
+  segment, key range) of at most :func:`item_keys` keys; blocks of one
+  warpgroup gather each item's K/V pages with ``cp.async`` and run QK^T and
+  PV on the tensor cores for a 64-row tile (:func:`lanes_per_block` lanes
+  x G heads of one kv head), writing fp32 (acc, m, l) partials to scratch
+  that this wrapper allocates; a combine kernel merges them per row.  The
+  grid and the scratch are sized from the shapes alone
+  (:func:`work_bounds`), so the engine gains no device-to-host copy.
+* ``"fma"`` — fp32 and any other D: the first version, one block per
+  (kv head, 16 lanes) walking its segments one after another, fp32 FMAs.
+
+Contract shared by all versions: ``seg_ctx[s]`` is at least one past the
 largest position of segment ``s``'s lanes (the engine passes exactly
 that), so page pruning by ``seg_ctx`` never hides a visible key.
 
-Dispatch is by device: a CUDA tensor launches the kernel (or raises); a
-CPU tensor runs :func:`packed_prefill_plain`.  There is no fallback.
+Dispatch is by device: a CUDA tensor launches a kernel (or raises); a CPU
+tensor runs :func:`packed_prefill_plain`.  There is no fallback.
 """
 
 from __future__ import annotations
@@ -31,14 +42,78 @@ import math
 import torch
 
 from . import build
+from .paged_attention import N_SMS
+
+TC_HEAD_DIMS = (64, 128)
+TC_ROWS = 64             # query rows of one warpgroup tile
+KEYS_PER_ITEM = 256      # key range of one work item, at most ...
+MAX_RANGES = 8           # ... until a segment of n_pages would need more
+TC_BLOCKS_PER_SM = 4     # partial-kernel blocks resident on one SM
 
 launches = build.LaunchCounter()
+
+
+def kernel_variant(dtype, head_dim: int, group: int, device) -> str:
+    """The version that serves a call: ``"plain"`` on the CPU; on a CUDA
+    device ``"wgmma"`` for bf16 with D in :data:`TC_HEAD_DIMS` and G query
+    heads per kv head at most one 64-row tile, else ``"fma"``."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"packed_prefill_attention: no kernel for device "
+                         f"{device}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS and \
+            1 <= group <= TC_ROWS:
+        return "wgmma"
+    return "fma"
+
+
+def lanes_per_block(group: int) -> int:
+    """Lanes of one tensor-core tile: lanes x G rows fill at most 64 (8
+    lanes at G = 8)."""
+    return max(1, TC_ROWS // group)
+
+
+def item_keys(n_pages: int, page_size: int) -> int:
+    """Keys of one work item: :data:`KEYS_PER_ITEM`, unless a segment of
+    all ``n_pages`` pages would then need more than :data:`MAX_RANGES`
+    items; then the fewest whole 64-key tiles that keep it at that many.
+    This bounds the partial scratch at MAX_RANGES slots a row."""
+    s_max = n_pages * page_size
+    if s_max <= KEYS_PER_ITEM * MAX_RANGES:
+        return KEYS_PER_ITEM
+    tiles = -(-s_max // (64 * MAX_RANGES))
+    return 64 * tiles
+
+
+def work_bounds(c: int, n_segs: int, n_pages: int, page_size: int,
+                group: int, n_kv_heads: int) -> dict:
+    """Sizes of the tensor-core variant, from the shapes alone: lanes per
+    block, lane blocks, keys per item, key ranges a row can have, the most
+    work items the planner can emit (every lane block holding
+    min(lanes, segments) segments of full length), and the partial
+    kernel's grid (enough blocks for every (item, kv head) pair, at most
+    :data:`TC_BLOCKS_PER_SM` a SM; the blocks stride over the pairs)."""
+    lanes = lanes_per_block(group)
+    n_lb = -(-c // lanes)
+    keys = item_keys(n_pages, page_size)
+    max_ranges = -(-(n_pages * page_size) // keys)
+    cap = n_lb * min(lanes, n_segs) * max_ranges
+    grid = max(1, min(cap * n_kv_heads, N_SMS * TC_BLOCKS_PER_SM))
+    return {"lanes": lanes, "n_lb": n_lb, "item_keys": keys,
+            "max_ranges": max_ranges, "item_cap": cap, "grid": grid}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k_pages, v_pages, page_rows, seg_ids, positions, seg_ctx, out;
 # C, Hkv, G, D, page_size, n_segs, n_pages; scale; dtype; stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# ... the same eight, then items, count, acc_part, ml_part; C, Hkv, G, D,
+# page_size, n_segs, n_pages, lanes, item_keys, max_ranges, grid; scale;
+# stream
+_TC_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + \
+    [ctypes.c_float, ctypes.c_void_p]
 
 
 def packed_prefill_plain(q, k_pages, v_pages, page_rows, seg_ids, positions,
@@ -108,23 +183,49 @@ def _check(q, k_pages, v_pages, page_rows, seg_ids, positions, seg_ctx):
 
 def packed_prefill_cuda(q, k_pages, v_pages, page_rows, seg_ids, positions,
                         seg_ctx):
-    """Launch ``csrc/packed_prefill.cu`` on the current stream."""
+    """Launch the variant of ``csrc/packed_prefill.cu`` that
+    :func:`kernel_variant` names, on the current stream."""
     _check(q, k_pages, v_pages, page_rows, seg_ids, positions, seg_ctx)
     c, h, d = q.shape
     _, page_size, hkv, _ = k_pages.shape
     n_segs, n_pages = page_rows.shape
+    g = h // hkv
     out = torch.empty_like(q)
-    fn = build.function("packed_prefill", "packed_prefill_launch",
-                        _ARGTYPES)
+    if c == 0:
+        return out
+    variant = kernel_variant(q.dtype, d, g, q.device)
+    ptrs = [t.data_ptr() for t in (q, k_pages, v_pages, page_rows, seg_ids,
+                                   positions, seg_ctx, out)]
+    if variant == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, out)):
+            raise ValueError("packed_prefill_attention: the bf16 tensor-core "
+                             "kernel needs 16-byte-aligned tensors "
+                             "(cp.async)")
+        wb = work_bounds(c, n_segs, n_pages, page_size, g, hkv)
+        slots = hkv * wb["n_lb"] * wb["max_ranges"] * TC_ROWS
+        # scratch: the work items (int4 each) and their count; the fp32
+        # partial acc (slots x D) and (m, l) pairs (slots x 2)
+        ints = torch.empty((wb["item_cap"] * 4 + 1,), dtype=torch.int32,
+                           device=q.device)
+        floats = torch.empty((slots * (d + 2),), dtype=torch.float32,
+                             device=q.device)
+        fn = build.function("packed_prefill", "packed_prefill_tc_launch",
+                            _TC_ARGTYPES)
+        args = ptrs + [ints.data_ptr(), ints[wb["item_cap"] * 4:].data_ptr(),
+                       floats.data_ptr(), floats[slots * d:].data_ptr()] + [
+            c, hkv, g, d, page_size, n_segs, n_pages, wb["lanes"],
+            wb["item_keys"], wb["max_ranges"], wb["grid"],
+            1.0 / math.sqrt(d)]
+    else:
+        fn = build.function("packed_prefill", "packed_prefill_launch",
+                            _ARGTYPES)
+        args = ptrs + [c, hkv, g, d, page_size, n_segs, n_pages,
+                       1.0 / math.sqrt(d), _DTYPES[q.dtype]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_rows.data_ptr(), seg_ids.data_ptr(),
-                 positions.data_ptr(), seg_ctx.data_ptr(), out.data_ptr(),
-                 c, hkv, h // hkv, d, page_size, n_segs, n_pages,
-                 1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+        err = fn(*args, stream)
     build.check("packed_prefill", err)
-    launches.add()
+    launches.add(variant)
     return out
 
 

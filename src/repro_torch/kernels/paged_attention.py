@@ -130,7 +130,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
                  n_pages, num_splits, pages_per_split, 1.0 / math.sqrt(d),
                  _DTYPES[q.dtype], stream)
     build.check("paged_attention", err)
-    launches.add()
+    launches.add("fma")
     return out
 
 

@@ -97,7 +97,7 @@ def ssd_scan_cuda(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
                  y.data_ptr(), final.data_ptr(), bsz, s, h, g, p, n, q,
                  _DTYPES[x.dtype], stream)
     build.check("ssd_scan", err)
-    launches.add()
+    launches.add("fma")
     return y, final
 
 

@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import packed_prefill as tpp
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
@@ -208,8 +209,95 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_launch_counter_counts_and_resets():
     c = build.LaunchCounter()
-    for _ in range(3):
-        c.add()
+    for variant in ("wgmma", "fma", "wgmma"):
+        c.add(variant)
     assert c.count == 3
+    assert c.of("wgmma") == 2 and c.of("fma") == 1 and c.of("plain") == 0
     c.reset()
-    assert c.count == 0
+    assert c.count == 0 and c.of("wgmma") == 0 and c.by_variant == {}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_variant_by_dtype_head_dim_device(dtype, d, device):
+    """The route is chosen openly from (dtype, D, device): the tensor-core
+    variant for bf16 at D = 64 and 128 on a card, the FMA variant for fp32
+    and every other D, the plain version on the CPU."""
+    if device == "cpu":
+        want = "plain"
+    elif dtype == torch.bfloat16 and d in (64, 128):
+        want = "wgmma"
+    else:
+        want = "fma"
+    assert tfa.kernel_variant(dtype, d, device) == want
+    assert tpp.kernel_variant(dtype, d, 8, device) == want
+
+
+def test_kernel_variant_packed_group_and_unknown_device():
+    """A group wider than one 64-row tile takes the FMA variant; a device
+    with no kernel raises."""
+    assert tpp.kernel_variant(torch.bfloat16, 64, 64, "cuda") == "wgmma"
+    assert tpp.kernel_variant(torch.bfloat16, 64, 65, "cuda") == "fma"
+    for fn in (lambda: tfa.kernel_variant(torch.bfloat16, 64, "meta"),
+               lambda: tpp.kernel_variant(torch.bfloat16, 64, 8, "meta")):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn()
+
+
+@pytest.mark.parametrize("group,lanes", [(1, 64), (4, 16), (6, 10), (8, 8),
+                                         (16, 4), (64, 1)])
+def test_lanes_per_block_fill_one_tile(group, lanes):
+    assert tpp.lanes_per_block(group) == lanes
+    assert lanes * group <= tpp.TC_ROWS
+
+
+@pytest.mark.parametrize("n_pages,page,keys", [
+    (128, 8, 256),      # the serving engine: 1024 keys, 4 ranges
+    (4, 8, 256),        # short contexts keep 256-key items
+    (256, 8, 256),      # 2048 keys: exactly MAX_RANGES ranges of 256
+    (257, 8, 320),      # past that, the fewest 64-key tiles for 8 ranges
+    (4096, 8, 4096),    # 32768 keys
+    (0, 8, 256),
+])
+def test_item_keys_bounds_ranges(n_pages, page, keys):
+    got = tpp.item_keys(n_pages, page)
+    assert got == keys and got % 64 == 0
+    assert -(-(n_pages * page) // got) <= tpp.MAX_RANGES
+
+
+def test_work_bounds_at_the_serving_chunk():
+    """C = 264 lanes (256-token budget + 8 riders), 8 segments, 128 pages
+    of 8, G = 8, Hkv = 4: 33 lane blocks of 8 lanes, 4 key ranges of 256,
+    at most 33 * 8 * 4 items, and 4 blocks a SM."""
+    wb = tpp.work_bounds(264, 8, 128, 8, 8, 4)
+    assert wb == {"lanes": 8, "n_lb": 33, "item_keys": 256,
+                  "max_ranges": 4, "item_cap": 1056,
+                  "grid": tpp.N_SMS * tpp.TC_BLOCKS_PER_SM}
+    one = tpp.work_bounds(264, 1, 128, 8, 8, 4)   # the chunked scheduler
+    assert one["item_cap"] == 33 * 4 and one["grid"] == 33 * 4 * 4
+    ragged = tpp.work_bounds(21, 3, 40, 8, 4, 2)
+    assert ragged["lanes"] == 16 and ragged["n_lb"] == 2
+    assert ragged["item_cap"] == 2 * 3 * 2 and ragged["grid"] == 24
+
+
+@pytest.mark.parametrize("case", ["flash", "packed"])
+def test_cpu_dispatch_counts_no_variant(case):
+    """On the CPU the wrappers run the plain versions and count nothing,
+    whatever the dtype and head dim."""
+    if case == "flash":
+        rng = np.random.RandomState(5)
+        t = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             .bfloat16() for shape in ((1, 8, 4, 64), (1, 8, 2, 64),
+                                       (1, 8, 2, 64))]
+        counter = tfa.launches
+        call = lambda: ops.flash_attention(*t, causal=True)  # noqa: E731
+    else:
+        t = [torch.from_numpy(a) for a in _packed_inputs(6)]
+        t[:3] = [x.bfloat16() for x in t[:3]]
+        counter = tpp.launches
+        call = lambda: ops.packed_prefill_attention(*t)  # noqa: E731
+    before = dict(counter.by_variant), counter.count
+    out = call()
+    assert torch.isfinite(out.float()).all()
+    assert (dict(counter.by_variant), counter.count) == before

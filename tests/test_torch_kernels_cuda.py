@@ -10,8 +10,18 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
+The bf16 tensor-core variants (D = 64 and 128) are held at the lengths,
+GQA groups and chunk layouts of the models and the serving engine too:
+S from 1 to 2048, groups 1, 4 and 8, causal and cross lengths; the
+rider-heavy packed chunk, a segment spanning several key ranges, shared
+prefix pages, ragged lane blocks and an all-padding chunk.  Each such test
+reads the per-variant launch counter, so a call that went through the
+wrong variant fails.
+
 The input builders are shared with ``tests/test_torch_kernels.py``, which
 holds the plain versions against the JAX package on the CPU."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -288,3 +298,141 @@ def test_ssd_kernel_strong_decay_stays_finite(cuda_device):
     np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOLS["float32"])
     np.testing.assert_allclose(_np(final), _np(want_f),
                                **SSD_TOLS["float32"])
+
+
+# ------------------------------------------------ tensor-core variants
+
+TC_FLASH_CAUSAL = [
+    # (B, S, H, Hkv, D): every S at both head dims and three GQA groups,
+    # B alternating between 1 and 4
+    ((1, 4)[i % 2], s, 8, 8 // g, d)
+    for i, (d, s, g) in enumerate(itertools.product(
+        (64, 128), (1, 40, 64, 1000, 1024, 2048), (1, 4, 8)))
+]
+
+TC_FLASH_CROSS = [
+    # (B, Sq, Sk, H, Hkv, D), not causal
+    (2, 24, 70, 4, 1, 64),
+    (1, 100, 1000, 8, 2, 64),
+    (4, 1000, 37, 8, 8, 128),
+    (1, 64, 2048, 8, 1, 128),
+]
+
+
+def _flash_tc(t, causal):
+    before = tfa.launches.of("wgmma")
+    out = ops.flash_attention(*t, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches.of("wgmma") == before + 1, "not the wgmma variant"
+    out = _np(out)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(
+        out, _np(tfa.flash_attention_plain(*t, causal=causal)),
+        **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_FLASH_CAUSAL)
+def test_flash_tc_causal_matches_plain(cuda_device, shape):
+    b, s, h, hkv, d = shape
+    t = _on(_flash_inputs((b, s, s, h, hkv, d), seed=s + d + hkv),
+            "bfloat16", cuda_device)
+    _flash_tc(t, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_FLASH_CROSS)
+def test_flash_tc_cross_lengths_match_plain(cuda_device, shape):
+    t = _on(_flash_inputs(shape, seed=17), "bfloat16", cuda_device)
+    _flash_tc(t, causal=False)
+
+
+def _packed_chunk(spans, c, h, hkv, d, page, npg, seed, share=0):
+    """A chunk of ``c`` lanes from (segment, first lane, lanes, first
+    position) spans; other lanes are padding.  Segment 1 shares its first
+    ``share`` physical pages with segment 0 (a prefix-cache hit)."""
+    n_segs = max(s for s, *_ in spans) + 1 if spans else 1
+    n_phys = n_segs * npg + 8
+    rng = np.random.RandomState(seed)
+    seg = np.full((c,), -1, np.int32)
+    pos = np.zeros((c,), np.int32)
+    ctx = np.zeros((n_segs,), np.int32)
+    for si, lane, n, start in spans:
+        seg[lane:lane + n] = si
+        pos[lane:lane + n] = np.arange(start, start + n)
+        ctx[si] = start + n
+    rows = rng.permutation(n_phys)[:n_segs * npg].reshape(n_segs, npg) \
+        .astype(np.int32)
+    if share:
+        rows[1, :share] = rows[0, :share]
+    q = rng.standard_normal((c, h, d)).astype(np.float32)
+    kp = rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32)
+    return [q, kp, vp, rows, seg, pos, ctx]
+
+
+TC_PACKED_CASES = {
+    # name: (spans, C, H, Hkv, page, n_pages, shared pages)
+    "riders": ([(0, 0, 96, 0), (1, 109, 64, 64), (2, 173, 40, 200),
+                (3, 213, 32, 424), (4, 245, 16, 800), (5, 261, 1, 1000),
+                (6, 262, 1, 700), (7, 263, 1, 37)], 264, 32, 4, 8, 128, 8),
+    "long_segment": ([(0, 0, 40, 1000)], 40, 16, 2, 16, 72, 0),
+    "shared_prefix": ([(0, 0, 30, 0), (1, 30, 20, 96), (2, 50, 3, 10)],
+                      53, 8, 2, 16, 8, 6),
+    "ragged_lanes": ([(0, 0, 13, 5), (1, 13, 8, 300)], 21, 8, 1, 8, 40, 0),
+    "all_padding": ([], 24, 8, 2, 8, 4, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(TC_PACKED_CASES))
+def test_packed_tc_matches_plain(cuda_device, case, d):
+    spans, c, h, hkv, page, npg, share = TC_PACKED_CASES[case]
+    arrays = _packed_chunk(spans, c, h, hkv, d, page, npg, seed=19,
+                           share=share)
+    t = _on(arrays, "bfloat16", cuda_device)
+    before = tpp.launches.of("wgmma")
+    out = ops.packed_prefill_attention(*t)
+    torch.cuda.synchronize()
+    assert tpp.launches.of("wgmma") == before + 1, "not the wgmma variant"
+    out = _np(out)
+    assert np.all(np.isfinite(out))
+    assert np.all(out[arrays[4] < 0] == 0.0), "padding lanes leaked output"
+    np.testing.assert_allclose(out, _np(tpp.packed_prefill_plain(*t)),
+                               **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_packed_tc_lane_past_its_pages_is_zero(cuda_device):
+    """A lane whose segment context is 0 (nothing live) comes out exactly
+    0 through the combine, never NaN."""
+    arrays = _packed_chunk([(0, 0, 8, 0), (1, 8, 8, 16)], 16, 8, 1, 64, 8,
+                           8, seed=20)
+    arrays[6][1] = 0          # segment 1: no live page
+    t = _on(arrays, "bfloat16", cuda_device)
+    out = _np(ops.packed_prefill_attention(*t))
+    assert np.all(out[8:] == 0.0) and np.all(np.isfinite(out))
+    np.testing.assert_allclose(out[:8], _np(tpp.packed_prefill_plain(*t))[:8],
+                               **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_variants_follow_dtype_and_head_dim(cuda_device):
+    """bf16 at D = 64 launches the tensor-core variants, fp32 and bf16 at
+    D = 16 the FMA ones, as ``kernel_variant`` says."""
+    for dtype, d, want in (("bfloat16", 64, "wgmma"), ("float32", 64, "fma"),
+                           ("bfloat16", 16, "fma")):
+        t = _on(_flash_inputs((1, 70, 70, 4, 2, d), seed=21), dtype,
+                cuda_device)
+        assert tfa.kernel_variant(t[0].dtype, d, t[0].device) == want
+        before = tfa.launches.of(want)
+        ops.flash_attention(*t, causal=True)
+        assert tfa.launches.of(want) == before + 1
+        p = _on(_packed_chunk([(0, 0, 10, 3)], 12, 4, 2, d, 8, 4, seed=22),
+                dtype, cuda_device)
+        assert tpp.kernel_variant(p[0].dtype, d, 2, p[0].device) == want
+        before = tpp.launches.of(want)
+        ops.packed_prefill_attention(*p)
+        assert tpp.launches.of(want) == before + 1
+    torch.cuda.synchronize()
