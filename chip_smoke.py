@@ -11,7 +11,11 @@ Phases, in order; each prints one line and any failure exits non-zero:
 3. the paged-decode kernel against its plain PyTorch version at the decode
    step's shapes (B = 8, H = 32, Hkv = 4, D = 64, page 8, 128 pages), fp32
    and bf16, with kernel, plain, library (SDPA over the gathered keys) and
-   bound times;
+   bound times, each row naming the variant that ran (``mma`` for bf16,
+   ``fma`` for fp32) with the profiler's device time beside the CUDA-event
+   mean; the bf16 row also times a batch whose every context is 0 (no key
+   read: the fixed cost of one call) and one row of 2048 keys (B = 1: the
+   fewest blocks, eight splits of one kv head each);
 4. the packed-prefill kernel against its plain version at the packed
    chunk's shapes (C = 264 lanes, 1 and 8 segments), likewise, each row
    naming the variant that ran (``wgmma`` for bf16, ``fma`` for fp32) and
@@ -21,9 +25,10 @@ Phases, in order; each prints one line and any failure exits non-zero:
    under the ``chunked`` and ``packed`` schedulers, holding the greedy
    tokens against the model's contiguous-cache decode;
 6. serving TinyLlama-1.1B in bf16 (its config's dtype) under ``packed``:
-   16 requests, every one must complete, both kernels must launch, and
-   every packed launch must be the tensor-core variant, 22 (one a layer)
-   per packed chunk;
+   16 requests, every one must complete, both kernels must launch, every
+   packed launch must be the tensor-core variant, 22 (one a layer) per
+   packed chunk, and every paged launch the ``mma`` variant, 22 per decode
+   step;
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
    as Zamba2 and Hkv = 4 as TinyLlama, D = 64), fp32 and bf16, with
@@ -32,8 +37,12 @@ Phases, in order; each prints one line and any failure exits non-zero:
    in phase 4;
 8. the SSD kernel against its plain version at the Mamba2 block's shapes
    (B = 4, S = 1024 and 1000, H = 64, P = 64, N = 128 as Mamba2-1.3B and
-   64 as Zamba2-1.2B, chunk 128, with d_skip), fp32 and bf16, likewise
-   (no single PyTorch call computes SSD, so no library time);
+   64 as Zamba2-1.2B, chunk 128, with d_skip), fp32 and bf16, likewise,
+   with the variant (``mma`` for bf16) and the profiler's device time (no
+   single PyTorch call computes SSD, so no library time); each row prints
+   the share of its limit that the worst element of y and of the final
+   state uses, and the bf16 rows the same for the ``fma`` kernel on the
+   same inputs (reached with chunk 64: the same function, fp32 inside);
 9. Mamba2-1.3B and Zamba2-1.2B at published widths and depths in fp32
    (seeded weights, the decay, skip and conv-bias leaves perturbed from
    their zero init): ``logits_fn`` over 2 prompts of 300 tokens held
@@ -44,8 +53,14 @@ Phases, in order; each prints one line and any failure exits non-zero:
 10. both models in bf16 (their configs' dtype): ``logits_fn`` over 4
    prompts of 1024 tokens, then 32 greedy decode steps at B = 4 from a
    fresh cache fed the prefill's greedy tokens; wall times, tokens/s and
-   launches; everything finite, every kernel of the path launched, and
-   Zamba2's 7 flash launches all the tensor-core variant;
+   launches; everything finite, every kernel of the path launched,
+   Zamba2's 7 flash launches all the tensor-core variant, and every SSD
+   launch (48 and 38, one a Mamba2 block) the ``mma`` variant; then the
+   prefill's logits against the fp32 forward on the same (bf16-rounded)
+   weights: their relative L2 distance may be at most
+   ``LOGITS_RATIO`` times that of the same bf16 forward with the SSD on
+   the ``fma`` kernel (chunk 64), so a rounding fault of the tensor-core
+   kernel at model level fails the run;
 11. the kernel table as one JSON line (each row with the variant of the
    main path), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -77,6 +92,11 @@ FLASH_TPU = "src/repro/kernels/flash_attention.py:72"
 SSD_TPU = "src/repro/kernels/ssd_scan.py:70"
 SSD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
 MODEL_TOL = 2e-3   # decode against forward, as tests/test_models_smoke.py
+# bf16 logits against the fp32 forward: at most this times as far as with
+# the SSD on the fma kernel.  Random weights at full depth amplify any bf16
+# rounding (both routes land 0.1-0.4 apart from fp32 in relative L2), so
+# the limit is set against the route whose kernel keeps fp32 inside.
+LOGITS_RATIO = 2.0
 DEVICE = "cuda"
 
 
@@ -146,6 +166,9 @@ def profiled_ms(torch, timer, fn, names, iters: int = 10):
 PACKED_KERNELS = ("packed_prefill_kernel", "plan_kernel", "partial_kernel",
                   "combine_kernel")
 FLASH_KERNELS = ("flash_attention_kernel", "flash_tc_kernel")
+PAGED_KERNELS = ("paged_partial_kernel", "paged_combine_kernel",
+                 "paged_mma_kernel")
+SSD_KERNELS = ("ssd_scan_kernel", "ssd_mma_kernel")
 
 
 def sdpa_call(q, k, v, mask):
@@ -164,6 +187,19 @@ def close_enough(out, want, tol: float) -> float:
     w = want.float().cpu().numpy()
     np.testing.assert_allclose(o, w, rtol=tol, atol=tol)
     return float(np.max(np.abs(o - w)))
+
+
+def limit_share(out, want, tol: float) -> float:
+    """The share of the rtol = atol = tol limit that the worst element
+    uses: max |out - want| / (tol (1 + |want|)); 1 is at the limit."""
+    o, w = out.float(), want.float()
+    return float(((o - w).abs() / (tol * (1 + w.abs()))).max())
+
+
+def rel_l2(out, want) -> float:
+    """||out - want|| / ||want|| over every element, in fp32."""
+    o, w = out.float(), want.float()
+    return float((o - w).norm() / w.norm())
 
 
 def fmt_ms(ms) -> str:
@@ -206,11 +242,17 @@ def phase_paged(torch, timer, dtype):
     (q, kp, vp, bt, ctx, occ), ctx_np, occ_np = paged_case(torch, dtype)
     want = pa.paged_attention_plain(q, kp, vp, bt, ctx, occ)
     dead = ~occ_np | (ctx_np == 0)
+    variant = pa.kernel_variant(q.dtype, q.shape[2],
+                                q.shape[1] // kp.shape[2], q.device)
     errs = {}
     for ns in (None, 3, 8):
+        before = pa.launches.of(variant)
         out = pa.paged_attention(q, kp, vp, bt, ctx, occupancy=occ,
                                  num_splits=ns)
         torch.cuda.synchronize()
+        if pa.launches.of(variant) != before + 1:
+            raise AssertionError(f"paged_attention[{ns}]: the {variant} "
+                                 f"variant did not launch")
         if not torch.isfinite(out.float()).all():
             raise AssertionError(f"paged_attention[{ns}]: non-finite output")
         if not (out[torch.from_numpy(dead).to(DEVICE)] == 0).all():
@@ -225,6 +267,18 @@ def phase_paged(torch, timer, dtype):
     flops = 4.0 * h * d * live.sum()
     kernel_ms = timer.ms(lambda: pa.paged_attention(
         q, kp, vp, bt, ctx, occupancy=occ))
+    device_ms = profiled_ms(torch, timer, lambda: pa.paged_attention(
+        q, kp, vp, bt, ctx, occupancy=occ), PAGED_KERNELS)
+    extra = {}
+    if variant == "mma":
+        # every context 0: no K/V byte is read, what is left is the fixed
+        # cost of one call on the device
+        no_keys = torch.zeros_like(ctx)
+        extra = {"no_keys_profiler_ms": profiled_ms(
+                     torch, timer, lambda: pa.paged_attention(
+                         q, kp, vp, bt, no_keys, occupancy=occ),
+                     PAGED_KERNELS),
+                 "long_row": paged_long_row(torch, timer, dtype)}
     plain_ms = timer.ms(lambda: pa.paged_attention_plain(
         q, kp, vp, bt, ctx, occ))
     n_pages = bt.shape[1]
@@ -237,13 +291,51 @@ def phase_paged(torch, timer, dtype):
     lib_ms = timer.ms(sdpa_call(q[:, :, None, :], kg, vg,
                                 mask[:, None, None, :]))
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    return {"name": "paged_attention", "route": "cuda", "variant": "fma",
+    return {"name": "paged_attention", "route": "cuda", "variant": variant,
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": PAGED_TPU, "max_abs_err": errs[None],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
+            "profiler_ms": device_ms,
             "errs": {str(k): v for k, v in errs.items()},
-            "splits": pa.default_num_splits(b, hkv, n_pages)}
+            "splits": pa.default_num_splits(b, hkv, n_pages, variant),
+            **extra}
+
+
+def paged_long_row(torch, timer, dtype, seed=3):
+    """One row of 2048 keys (B = 1, H = 32, Hkv = 4, D = 64, 256 pages of
+    8): the fewest blocks the decode step launches, each split walking 256
+    keys.  Returns its errors, times and bound."""
+    from repro_torch.kernels import paged_attention as pa
+    b, h, hkv, d, page, npg = 1, 32, 4, 64, 8, 256
+    rng = np.random.RandomState(seed + npg)
+    dt = getattr(torch, dtype)
+    q, kp, vp = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(DEVICE, dt) for shape in
+        ((b, h, d), (npg + 8, page, hkv, d), (npg + 8, page, hkv, d))]
+    bt = torch.from_numpy(rng.permutation(npg + 8)[:npg].reshape(b, npg)
+                          .astype(np.int32)).to(DEVICE)
+    ctx = torch.full((b,), npg * page, dtype=torch.int32, device=DEVICE)
+    occ = torch.ones((b,), dtype=torch.bool, device=DEVICE)
+    err = close_enough(pa.paged_attention(q, kp, vp, bt, ctx, occupancy=occ),
+                       pa.paged_attention_plain(q, kp, vp, bt, ctx, occ),
+                       TOL[dtype])
+
+    def call():
+        return pa.paged_attention(q, kp, vp, bt, ctx, occupancy=occ)
+    elt = q.element_size()
+    nbytes = npg * page * hkv * d * 2 * elt + 2 * b * h * d * elt + \
+        4 * npg + 9 * b
+    kg, vg = [t[bt.long()].reshape(b, npg * page, hkv, d).transpose(1, 2)
+              .contiguous() for t in (kp, vp)]
+    bound_ms, bound_by = bound(nbytes, 4.0 * h * d * npg * page, dtype)
+    return {"max_abs_err": err, "ms": timer.ms(call),
+            "profiler_ms": profiled_ms(torch, timer, call, PAGED_KERNELS),
+            "library_ms": timer.ms(sdpa_call(q[:, :, None, :], kg, vg, None)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "splits": pa.default_num_splits(
+                b, hkv, npg, pa.kernel_variant(q.dtype, d, h // hkv,
+                                               q.device))}
 
 
 # ----------------------------------------------------------- phase 4
@@ -463,6 +555,7 @@ def serve_bf16(torch):
                     "packed_prefill_attention":
                         packed_prefill.launches.count}
         packed_tc = packed_prefill.launches.of("wgmma")
+        paged_tc = paged_attention.launches.of("mma")
         stats = session.stats()["totals"]
     finally:
         session.close()
@@ -478,6 +571,12 @@ def serve_bf16(torch):
             f"(wgmma variant {packed_tc}), want {want_packed}: one "
             f"tensor-core launch a layer for each of "
             f"{stats['packed_chunks']} packed chunks")
+    if not (paged_tc == launches["paged_attention"] and
+            paged_tc % cfg.n_layers == 0):
+        raise AssertionError(
+            f"bf16: paged launches {launches['paged_attention']} (mma "
+            f"variant {paged_tc}), want every one the mma variant, "
+            f"{cfg.n_layers} (one a layer) per decode step")
     ttft = [hnd.ttft() for hnd in handles]
     itl = [g for hnd in handles for g in hnd.itl()]
     summary = {
@@ -489,7 +588,9 @@ def serve_bf16(torch):
         "itl_p50_ms": float(np.percentile(itl, 50)) * 1e3,
         "itl_p99_ms": float(np.percentile(itl, 99)) * 1e3,
         "steps": stats["steps"], "packed_chunks": stats["packed_chunks"],
-        "launches": launches, "packed_wgmma_launches": packed_tc}
+        "launches": launches, "packed_wgmma_launches": packed_tc,
+        "paged_mma_launches": paged_tc,
+        "decode_steps": paged_tc // cfg.n_layers}
     return summary, launches
 
 
@@ -577,16 +678,38 @@ def phase_ssd(torch, timer, dtype, s, n, timed, seed=8):
     ds = dev(rng.standard_normal((h,)), torch.float32)
     want_y, want_f = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk=chunk,
                                        d_skip=ds)
+    variant = ss.kernel_variant(x.dtype, p, n, chunk, x.device)
+    before = ss.launches.of(variant)
     y, final = ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk, d_skip=ds)
     torch.cuda.synchronize()
+    if ss.launches.of(variant) != before + 1:
+        raise AssertionError(f"ssd_scan[S={s}, N={n}]: the {variant} "
+                             f"variant did not launch")
     if not (torch.isfinite(y.float()).all() and
             torch.isfinite(final).all()):
         raise AssertionError(f"ssd_scan[S={s}, N={n}]: non-finite")
-    row = {"name": "ssd_scan", "route": "cuda", "variant": "fma",
+    tol = SSD_TOL[dtype]
+    row = {"name": "ssd_scan", "route": "cuda", "variant": variant,
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": SSD_TPU,
-           "max_abs_err": max(close_enough(y, want_y, SSD_TOL[dtype]),
-                              close_enough(final, want_f, SSD_TOL[dtype]))}
+           "max_abs_err": max(close_enough(y, want_y, tol),
+                              close_enough(final, want_f, tol)),
+           "shares": {"y": limit_share(y, want_y, tol),
+                      "final": limit_share(final, want_f, tol)}}
+    if variant == "mma":
+        # the fma kernel on the same inputs: chunk 64 computes the same
+        # function and routes bf16 to it (fp32 scores, products and state)
+        before = ss.launches.of("fma")
+        y2, final2 = ss.ssd_scan(x, dt, a, bm, cm, chunk=64, d_skip=ds)
+        torch.cuda.synchronize()
+        if ss.launches.of("fma") != before + 1:
+            raise AssertionError(f"ssd_scan[S={s}, N={n}]: chunk 64 did not "
+                                 f"launch the fma variant")
+        row["fma"] = {"max_abs_err": max(close_enough(y2, want_y, tol),
+                                         close_enough(final2, want_f, tol)),
+                      "y": limit_share(y2, want_y, tol),
+                      "final": limit_share(final2, want_f, tol)}
+        del y2, final2
     del want_y, want_f
     if not timed:
         return row
@@ -595,6 +718,9 @@ def phase_ssd(torch, timer, dtype, s, n, timed, seed=8):
         4 * (b * s * h + 2 * h + b * h * p * n)
     row["ms"] = timer.ms(lambda: ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
                                              d_skip=ds))
+    row["profiler_ms"] = profiled_ms(
+        torch, timer, lambda: ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                          d_skip=ds), SSD_KERNELS)
     row["plain_ms"] = timer.ms(lambda: ss.ssd_scan_plain(
         x, dt, a, bm, cm, chunk=chunk, d_skip=ds), iters=5)
     row["library_ms"] = None
@@ -619,9 +745,10 @@ def read_launches():
             "flash_attention": flash_attention.launches.count}
 
 
-def flash_tc_launches():
-    from repro_torch.kernels import flash_attention
-    return flash_attention.launches.of("wgmma")
+def tc_launches():
+    """Launches of the tensor-core variants: flash's wgmma, SSD's mma."""
+    from repro_torch.kernels import flash_attention, ssd_scan
+    return flash_attention.launches.of("wgmma"), ssd_scan.launches.of("mma")
 
 
 def perturbed_model(torch, arch, dtype=None, seed=0):
@@ -713,6 +840,7 @@ def model_bf16(torch, arch, b=4, s=1024, n_new=32):
         finite = bool(torch.isfinite(logits).all())
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        prefill = logits
         outs = []
         for t in range(n_new):
             logits, cache = model.decode_step(params, cache, {
@@ -724,7 +852,8 @@ def model_bf16(torch, arch, b=4, s=1024, n_new=32):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = read_launches()
-        flash_tc = flash_tc_launches()
+        flash_tc, ssd_tc = tc_launches()
+        vs_fp32 = logits_against_fp32(torch, model, params, tokens, prefill)
     if not finite:
         raise AssertionError(f"{arch} bf16: non-finite logits")
     want = ["ssd_scan"] + (["flash_attention"] if cfg.family == "hybrid"
@@ -738,14 +867,58 @@ def model_bf16(torch, arch, b=4, s=1024, n_new=32):
             f"{arch} bf16: flash launches {launches['flash_attention']} "
             f"(wgmma variant {flash_tc}), want the tensor-core variant at "
             f"each of {n_sites} attention sites of the forward")
-    del params, cache
+    if not ssd_tc == launches["ssd_scan"] == cfg.n_layers:
+        raise AssertionError(
+            f"{arch} bf16: SSD launches {launches['ssd_scan']} (mma variant "
+            f"{ssd_tc}), want the mma variant in each of {cfg.n_layers} "
+            f"Mamba2 blocks of the forward")
+    if not vs_fp32["mma"] <= LOGITS_RATIO * vs_fp32["fma"]:
+        raise AssertionError(
+            f"{arch} bf16: logits {vs_fp32['mma']:.4g} (relative L2) from "
+            f"the fp32 forward, more than {LOGITS_RATIO} x the "
+            f"{vs_fp32['fma']:.4g} of the same forward with the SSD on the "
+            f"fma kernel")
+    del params, cache, prefill
     torch.cuda.empty_cache()
     summary = {"model": arch, "batch": b, "prompt_tokens": s,
                "prefill_s": t1 - t0, "prefill_tok_s": b * s / (t1 - t0),
                "decode_steps": n_new, "decode_s": t2 - t1,
                "decode_tok_s": b * n_new / (t2 - t1),
-               "launches": launches, "flash_wgmma_launches": flash_tc}
+               "launches": launches, "flash_wgmma_launches": flash_tc,
+               "ssd_mma_launches": ssd_tc, "logits_vs_fp32": vs_fp32}
     return summary, launches
+
+
+def logits_against_fp32(torch, model, params, tokens, logits):
+    """The bf16 prefill's ``logits`` (SSD on the mma kernel) and the same
+    bf16 forward with the SSD on the fma kernel (chunk 64: the same
+    function, fp32 inside), each against the fp32 forward on the same
+    bf16-rounded weights: relative L2 distance and top-1 agreement."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    before = ssd_scan.launches.of("fma")
+    fma_logits, _ = build_model(cfg.replace(ssm_chunk=64)).logits_fn(
+        params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if ssd_scan.launches.of("fma") != before + cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: chunk 64 did not run the fma "
+                             f"SSD kernel in every Mamba2 block")
+    model32 = build_model(cfg.replace(dtype="float32"))
+    params32 = model32.init(seed=0, device=DEVICE)
+    with torch.no_grad():
+        for p32, p16 in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p16)
+    want, _ = model32.logits_fn(params32, {"tokens": tokens})
+    del params32
+    top1 = want.argmax(-1)
+    out = {"mma": rel_l2(logits, want), "fma": rel_l2(fma_logits, want),
+           "mma_top1": float((logits.argmax(-1) == top1).float().mean()),
+           "fma_top1": float((fma_logits.argmax(-1) == top1).float().mean()),
+           "ratio_limit": LOGITS_RATIO}
+    del fma_logits, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -773,11 +946,20 @@ def main() -> int:
         t0 = time.perf_counter()
         row = phase_paged(torch, timer, dtype)
         kernels[("paged", dtype)] = row
-        say(f"[3 paged {dtype}] max_abs_err by num_splits {row['errs']} "
-            f"(default splits {row['splits']}); ms {row['ms']:.4f} plain "
-            f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
-            f"{row['bound_ms']:.4f} ({row['bound_by']}) [{card}] "
-            f"{time.perf_counter() - t0:.1f} s")
+        lr = row.get("long_row")
+        merge = (f"; every context 0: profiler "
+                 f"{fmt_ms(row['no_keys_profiler_ms'])}; B=1 2048 keys "
+                 f"({lr['splits']} splits): max_abs_err "
+                 f"{lr['max_abs_err']:.3g} ms {lr['ms']:.4f} profiler "
+                 f"{fmt_ms(lr['profiler_ms'])} library "
+                 f"{lr['library_ms']:.4f} bound {lr['bound_ms']:.5f} "
+                 f"({lr['bound_by']})" if lr else "")
+        say(f"[3 paged {dtype}] variant {row['variant']} max_abs_err by "
+            f"num_splits {row['errs']} (default splits {row['splits']}); "
+            f"ms {row['ms']:.4f} profiler {fmt_ms(row['profiler_ms'])} "
+            f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}){merge} "
+            f"[{card}] {time.perf_counter() - t0:.1f} s")
     for dtype in ("float32", "bfloat16"):
         for n_segs in (1, 8):
             t0 = time.perf_counter()
@@ -823,9 +1005,17 @@ def main() -> int:
                 t0 = time.perf_counter()
                 row = phase_ssd(torch, timer, dtype, s, n, timed=s == 1024)
                 kernels[("ssd", dtype, n, s)] = row
-                say(f"[8 ssd {dtype} S={s} N={n}] max_abs_err "
-                    f"{row['max_abs_err']:.3g}" + (
-                        f"; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                sh = row["shares"]
+                fma = (f"; fma kernel, same inputs: max_abs_err "
+                       f"{row['fma']['max_abs_err']:.3g}, share of limit y "
+                       f"{row['fma']['y']:.3f} final "
+                       f"{row['fma']['final']:.3f}" if "fma" in row else "")
+                say(f"[8 ssd {dtype} S={s} N={n}] variant {row['variant']} "
+                    f"max_abs_err {row['max_abs_err']:.3g}, share of limit "
+                    f"y {sh['y']:.3f} final {sh['final']:.3f}{fma}" + (
+                        f"; ms {row['ms']:.4f} profiler "
+                        f"{fmt_ms(row['profiler_ms'])} plain "
+                        f"{row['plain_ms']:.4f} "
                         f"bound {row['bound_ms']:.4f} ({row['bound_by']}) "
                         f"[{card}]" if "ms" in row else "") +
                     f" {time.perf_counter() - t0:.1f} s")
@@ -849,7 +1039,8 @@ def main() -> int:
                       (("flash", "bfloat16", 32, 1024), "flash_attention"),
                       (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
         row = {k: v for k, v in kernels[key].items()
-               if k not in ("errs", "splits", "profiler_ms")}
+               if k not in ("errs", "splits", "no_keys_profiler_ms",
+                            "long_row", "shares", "fma")}
         row["launches"] = launches[name]
         table.append(row)
     say(json.dumps({"kernels": table}))

@@ -149,6 +149,19 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def call_on(device, fn, *args) -> int:
+    """Call the launch function ``fn(*args, stream)`` on the current stream
+    of ``device`` (a CUDA ``torch.device`` with an index), entering that
+    device's context only when it is not already the current one: the
+    context manager costs a few microseconds, and decode calls a kernel
+    once a layer."""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def check(name: str, err: int) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function of
     ``csrc/<name>.cu``."""

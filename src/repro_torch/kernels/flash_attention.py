@@ -131,11 +131,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool):
         fn = build.function("flash_attention", "flash_attention_launch",
                             _ARGTYPES)
         extra = (_DTYPES[q.dtype],)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, hkv, d, int(causal), 1.0 / math.sqrt(d),
-                 *extra, stream)
+    err = build.call_on(q.device, fn, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), b, sq, sk, h, hkv, d,
+                        int(causal), 1.0 / math.sqrt(d), *extra)
     build.check("flash_attention", err)
     launches.add(variant)
     return out

@@ -221,10 +221,7 @@ def packed_prefill_cuda(q, k_pages, v_pages, page_rows, seg_ids, positions,
                             _ARGTYPES)
         args = ptrs + [c, hkv, g, d, page_size, n_segs, n_pages,
                        1.0 / math.sqrt(d), _DTYPES[q.dtype]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*args, stream)
-    build.check("packed_prefill", err)
+    build.check("packed_prefill", build.call_on(q.device, fn, *args))
     launches.add(variant)
     return out
 

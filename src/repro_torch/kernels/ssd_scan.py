@@ -1,21 +1,31 @@
-"""Mamba2 SSD chunk scan: the hand-written Hopper kernel, its wrapper and
-its plain PyTorch version.
+"""Mamba2 SSD chunk scan: the hand-written Hopper kernels, their wrapper and
+the plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan``
-(+ ``_ssd_kernel``).  The kernel is ``csrc/ssd_scan.cu``: one block per
-(batch, head) walking the chunks in order with the fp32 (P, N) state in
-shared memory, the decay-masked C·Bᵀ dual form of each chunk built in
-strips of 32 query rows, and ``d_skip`` folded into the fp32 epilogue
-before the cast (where the model's ``ssd_chunked_ref`` adds it; the JAX
-dispatch ``ops.ssd`` adds it after the kernel's cast instead).  S need not
-be a multiple of the chunk: the ragged last chunk is masked in the kernel.
+(+ ``_ssd_kernel``).  The kernels are in ``csrc/ssd_scan.cu``: one block
+per (batch, head) walking the chunks in order with the fp32 (P, N) state,
+the decay-masked C·Bᵀ dual form of each chunk taken only on and below the
+diagonal, and ``d_skip`` folded into the fp32 epilogue before the cast
+(where the model's ``ssd_chunked_ref`` adds it; the JAX dispatch
+``ops.ssd`` adds it after the kernel's cast instead).  S need not be a
+multiple of the chunk: the ragged last chunk is masked in the kernel.
 
-Bound on H100: operations (the chunk's score strips and state products,
-about 2 * B * S * H * (Q N + Q P + 2 P N) of them, against one read of x,
-B and C and one write of y).  This first version computes with fp32 FMAs
-from shared memory; its grid is B * H blocks.
+Bound on H100: bytes.  At the Mamba2 block's shape (B = 4, S = 1024,
+H = 64, P = 64, N = 128, bf16) a call moves about 78 MB (x, B, C, dt in;
+y and the fp32 final state out) against about 15 GFLOP of chunk products.
+Two variants, chosen openly by :func:`kernel_variant`:
 
-Dispatch is by device: a CUDA tensor launches the kernel (or raises); a
+* ``"mma"`` — bf16 x/B/C with P = 64, N in :data:`TC_STATES` and chunk
+  :data:`TC_CHUNK` (Mamba2-1.3B and Zamba2-1.2B).  All four chunk products
+  (C·stateᵀ, C·Bᵀ, the decayed scores times x, and the state update
+  xᵀ·(B∘w)) on the tensor cores with ``mma.sync``; the scores rounded to
+  bf16 before they multiply x, the carried state fp32 in registers and
+  bf16 only as an operand; x, B and C in bf16 shared memory by 16-byte
+  ``cp.async``, two blocks an SM.  Needs 16-byte-aligned x, B, C and y.
+* ``"fma"`` — fp32 (its 2e-4 tolerance rules out TF32) and bf16 at any
+  other shape: the first version, fp32 FMAs from shared memory.
+
+Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
 CPU tensor runs :func:`ssd_scan_plain`.  There is no fallback.
 """
 
@@ -30,12 +40,34 @@ from . import build, ref
 MAX_CHUNK = 128   # the kernel's score strips cover 128 key columns
 MAX_HEAD_DIM = 128   # P
 MAX_STATE = 128      # N
+TC_HEAD_DIM = 64     # P of the mma variant
+TC_STATES = (64, 128)
+TC_CHUNK = 128
 
 launches = build.LaunchCounter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, dt, a, b, c, d_skip, y, final_state; B, S, H, G, P, N, Q; dtype; stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# x, dt, a, b, c, d_skip, y, final_state; B, S, H, G, N; stream
+_MMA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+    [ctypes.c_void_p]
+
+
+def kernel_variant(dtype, head_dim: int, state: int, chunk: int,
+                   device) -> str:
+    """The version that serves a call: ``"plain"`` on the CPU; on a CUDA
+    device ``"mma"`` for bf16 with P = :data:`TC_HEAD_DIM`, N in
+    :data:`TC_STATES` and chunk :data:`TC_CHUNK`, else ``"fma"``."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {device}")
+    if dtype == torch.bfloat16 and head_dim == TC_HEAD_DIM and \
+            state in TC_STATES and chunk == TC_CHUNK:
+        return "mma"
+    return "fma"
 
 
 def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
@@ -75,8 +107,9 @@ def _check(x, dt, a, b, c, chunk, d_skip):
 
 
 def ssd_scan_cuda(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
-    """Launch ``csrc/ssd_scan.cu`` on the current stream.  dt, a and
-    d_skip are read in fp32 (a bf16 value widens exactly)."""
+    """Launch the variant of ``csrc/ssd_scan.cu`` that
+    :func:`kernel_variant` names, on the current stream.  dt, a and d_skip
+    are read in fp32 (a bf16 value widens exactly)."""
     _check(x, dt, a, b, c, chunk, d_skip)
     bsz, s, h, p = x.shape
     _, _, g, n = b.shape
@@ -88,16 +121,22 @@ def ssd_scan_cuda(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if bsz == 0:
         return y, final
-    q = max(1, min(chunk, s))
-    fn = build.function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), None if d_skip is None else d_skip.data_ptr(),
-                 y.data_ptr(), final.data_ptr(), bsz, s, h, g, p, n, q,
-                 _DTYPES[x.dtype], stream)
-    build.check("ssd_scan", err)
-    launches.add("fma")
+    variant = kernel_variant(x.dtype, p, n, chunk, x.device)
+    ptrs = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), None if d_skip is None else d_skip.data_ptr(),
+            y.data_ptr(), final.data_ptr()]
+    if variant == "mma":
+        if any(t.data_ptr() % 16 for t in (x, b, c, y)):
+            raise ValueError("ssd_scan: the bf16 tensor-core kernel needs "
+                             "16-byte-aligned x, b, c and y (cp.async)")
+        fn = build.function("ssd_scan", "ssd_scan_mma_launch", _MMA_ARGTYPES)
+        args = ptrs + [bsz, s, h, g, n]
+    else:
+        fn = build.function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
+        args = ptrs + [bsz, s, h, g, p, n, max(1, min(chunk, s)),
+                       _DTYPES[x.dtype]]
+    build.check("ssd_scan", build.call_on(x.device, fn, *args))
+    launches.add(variant)
     return y, final
 
 

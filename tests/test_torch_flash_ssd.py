@@ -211,3 +211,26 @@ def test_ssd_wrapper_validates_inputs(case):
         x = x.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         tss._check(x, dt, a, b, c, chunk, None)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+@pytest.mark.parametrize("p,n,chunk", [(64, 128, 128), (64, 64, 128),
+                                       (64, 32, 128), (32, 128, 128),
+                                       (64, 128, 64), (64, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_variant_by_dtype_shape_device(dtype, p, n, chunk,
+                                                  device):
+    """SSD: the mma variant for bf16 at P = 64, N = 64 or 128 and chunk 128
+    on a card (Mamba2-1.3B and Zamba2-1.2B), the FMA variant for fp32 and
+    every other shape, the plain version on the CPU; a device with no
+    kernel raises."""
+    if device == "cpu":
+        want = "plain"
+    elif dtype == torch.bfloat16 and p == 64 and n in (64, 128) and \
+            chunk == 128:
+        want = "mma"
+    else:
+        want = "fma"
+    assert tss.kernel_variant(dtype, p, n, chunk, device) == want
+    with pytest.raises(ValueError, match="no kernel"):
+        tss.kernel_variant(dtype, p, n, chunk, "meta")

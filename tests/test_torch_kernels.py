@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import packed_prefill as tpp
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tss
 from test_torch_kernels_cuda import (
     PAGED_SHAPES,
     TOLS,
@@ -156,13 +157,19 @@ def test_sample_tokens_refuses_temperature():
 
 
 def test_default_num_splits_for_132_sms():
-    # 32 (row, kv head) pairs at the serving batch: ~2 blocks per SM
-    assert tpa.default_num_splits(8, 4, 128) == 9
-    # never fewer than four pages per split, never more than the combine
-    # kernel takes
-    assert tpa.default_num_splits(1, 1, 8) == 2
-    assert tpa.default_num_splits(1, 1, 3) == 1
-    assert tpa.default_num_splits(1, 1, 10_000) == tpa.MAX_SPLITS
+    # 32 (row, kv head) pairs at the serving batch: ~2 blocks per SM, cut
+    # to one cluster of eight for the mma variant
+    assert tpa.default_num_splits(8, 4, 128, "fma") == 9
+    assert tpa.default_num_splits(8, 4, 128, "mma") == 8
+    # never fewer than four pages per split, never more than the variant
+    # runs (the fma combine kernel's arrays, the mma variant's cluster)
+    for variant in ("fma", "mma"):
+        assert tpa.default_num_splits(1, 1, 8, variant) == 2
+        assert tpa.default_num_splits(1, 1, 3, variant) == 1
+        assert tpa.default_num_splits(1, 1, 10_000, variant) == \
+            tpa.max_splits(variant)
+    assert tpa.max_splits("fma") == tpa.MAX_SPLITS
+    assert tpa.max_splits("mma") == tpa.TC_MAX_SPLITS == 8
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed", "index", "shape",
@@ -281,7 +288,62 @@ def test_work_bounds_at_the_serving_chunk():
     assert ragged["item_cap"] == 2 * 3 * 2 and ragged["grid"] == 24
 
 
-@pytest.mark.parametrize("case", ["flash", "packed"])
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+@pytest.mark.parametrize("group", [1, 4, 8, 16, 17])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_variant_by_dtype_shape_device(dtype, d, group, device):
+    """Paged decode: the mma variant for bf16 at D = 64 and 128 with at most
+    16 query heads a kv head (the mma's M rows) on a card, the FMA variant
+    otherwise, the plain version on the CPU."""
+    if device == "cpu":
+        want = "plain"
+    elif dtype == torch.bfloat16 and d in (64, 128) and group <= 16:
+        want = "mma"
+    else:
+        want = "fma"
+    assert tpa.kernel_variant(dtype, d, group, device) == want
+
+
+def test_paged_kernel_variant_unknown_device():
+    with pytest.raises(ValueError, match="no kernel"):
+        tpa.kernel_variant(torch.bfloat16, 64, 8, "meta")
+
+
+@pytest.mark.parametrize("b,hkv,g,d,splits", [
+    (8, 4, 8, 64, 9),        # the serving batch, default splits
+    (1, 8, 4, 128, 1),
+    (3, 2, 16, 128, 128),
+])
+def test_paged_scratch_holds_the_partials(b, hkv, g, d, splits):
+    """A global-memory merge's one scratch: acc (splits x B x Hkv x G x D),
+    then the (m, l) pairs."""
+    n = tpa.scratch_floats(b, hkv, g, d, splits)
+    assert n == splits * b * hkv * g * d + 2 * splits * b * hkv * g
+
+
+@pytest.mark.parametrize("asked,mma,fma", [(1, 1, 1), (3, 3, 3), (8, 8, 8),
+                                           (9, 8, 9), (128, 8, 128)])
+def test_paged_variant_splits(asked, mma, fma):
+    """Each variant runs an explicit split count as asked, up to its most
+    (eight for mma, one cluster; 128 for fma); above that it refuses the
+    count, naming its most, instead of cutting it.  ``mma`` and ``fma``
+    are min(asked, the variant's most)."""
+    for variant, runs in (("mma", mma), ("fma", fma)):
+        if runs == asked:
+            assert tpa.split_count(asked, 8, 4, 128, variant) == asked
+        else:
+            assert tpa.max_splits(variant) == runs
+            with pytest.raises(ValueError, match=rf"\[1, {runs}\]"):
+                tpa.split_count(asked, 8, 4, 128, variant)
+    for variant in ("mma", "fma"):
+        assert tpa.split_count(None, 8, 4, 128, variant) == \
+            tpa.default_num_splits(8, 4, 128, variant)
+        with pytest.raises(ValueError, match="num_splits"):
+            tpa.split_count(0, 8, 4, 128, variant)
+
+
+@pytest.mark.parametrize("case", ["flash", "packed", "paged", "ssd"])
 def test_cpu_dispatch_counts_no_variant(case):
     """On the CPU the wrappers run the plain versions and count nothing,
     whatever the dtype and head dim."""
@@ -292,11 +354,26 @@ def test_cpu_dispatch_counts_no_variant(case):
                                        (1, 8, 2, 64))]
         counter = tfa.launches
         call = lambda: ops.flash_attention(*t, causal=True)  # noqa: E731
-    else:
+    elif case == "packed":
         t = [torch.from_numpy(a) for a in _packed_inputs(6)]
         t[:3] = [x.bfloat16() for x in t[:3]]
         counter = tpp.launches
         call = lambda: ops.packed_prefill_attention(*t)  # noqa: E731
+    elif case == "paged":
+        t = [torch.from_numpy(a) for a in
+             _paged_inputs((2, 16, 2, 64, 8, 8, 4), seed=5)]
+        t[:3] = [x.bfloat16() for x in t[:3]]
+        counter = tpa.launches
+        call = lambda: ops.paged_attention(*t)  # noqa: E731
+    else:
+        rng = np.random.RandomState(5)
+        x, b, c = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).bfloat16() for shape in
+            ((1, 40, 4, 64), (1, 40, 1, 128), (1, 40, 1, 128))]
+        dt = torch.rand(1, 40, 4)
+        a = -torch.rand(4)
+        counter = tss.launches
+        call = lambda: ops.ssd(x, dt, a, b, c, chunk=128)[0]  # noqa: E731
     before = dict(counter.by_variant), counter.count
     out = call()
     assert torch.isfinite(out.float()).all()

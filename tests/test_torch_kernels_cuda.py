@@ -18,6 +18,14 @@ prefix pages, ragged lane blocks and an all-padding chunk.  Each such test
 reads the per-variant launch counter, so a call that went through the
 wrong variant fails.
 
+The bf16 paged-decode and SSD kernels' ``mma`` variants are held the
+same way: paged at D 64 and 128, GQA groups 1, 4 and 8, pages of 8 and
+16, contexts 0 to 2048, an unoccupied row aliasing a live row's pages,
+split counts 1, 3 and 8 (the most it runs: one thread-block cluster) and
+a count above it refused; SSD at N 64 and 128,
+S from 1 to 2048, with and without ``d_skip``, one and two groups, the
+final state checked beside y.
+
 The input builders are shared with ``tests/test_torch_kernels.py``, which
 holds the plain versions against the JAX package on the CPU."""
 
@@ -435,4 +443,163 @@ def test_variants_follow_dtype_and_head_dim(cuda_device):
         before = tpp.launches.of(want)
         ops.packed_prefill_attention(*p)
         assert tpp.launches.of(want) == before + 1
+    torch.cuda.synchronize()
+
+
+# ------------------------------------- paged decode and SSD, mma variants
+
+TC_PAGED_CONTEXTS = (0, 1, 63, 64, 65, 1000, 1024, 2048)
+
+
+def _paged_decode_case(b, g, d, page, contexts, seed, hkv=2):
+    """B rows whose contexts are ``contexts`` over pages enough for 2048
+    keys, each row on its own permuted physical pages."""
+    n_pages = 2048 // page
+    n_phys = b * n_pages + 16
+    rng = np.random.RandomState(seed)
+    q = rng.standard_normal((b, g * hkv, d)).astype(np.float32)
+    kp = rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32)
+    bt = rng.permutation(n_phys)[:b * n_pages].reshape(b, n_pages) \
+        .astype(np.int32)
+    ctx = np.asarray(contexts, np.int32)
+    return [q, kp, vp, bt, ctx, np.ones((b,), bool)]
+
+
+def _paged_mma(t, num_splits):
+    before = tpa.launches.of("mma")
+    out = ops.paged_attention(*t[:5], occupancy=t[5], num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert tpa.launches.of("mma") == before + 1, "not the mma variant"
+    return _np(out)
+
+
+# None (the default), and explicit counts up to 8, the most the mma
+# variant runs (``tpa.max_splits("mma")``: one thread-block cluster)
+TC_PAGED_SPLITS = [None, 1, 3, 8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_splits", TC_PAGED_SPLITS)
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_mma_matches_plain(cuda_device, d, g, page, num_splits):
+    """B = 8 rows at contexts 0 .. 2048; then row 4 unoccupied, its block
+    table aliasing the 2048-key row's pages: exactly 0, the rest
+    unchanged."""
+    arrays = _paged_decode_case(8, g, d, page, TC_PAGED_CONTEXTS,
+                                seed=d + g + page)
+    t = _on(arrays, "bfloat16", cuda_device)
+    out = _paged_mma(t, num_splits)
+    assert np.all(np.isfinite(out)) and np.all(out[0] == 0.0)
+    want = _np(tpa.paged_attention_plain(*t[:5], t[5]))
+    np.testing.assert_allclose(out, want, **TOLS["bfloat16"])
+    arrays[3][4] = arrays[3][7]
+    arrays[5][4] = False
+    t = _on(arrays, "bfloat16", cuda_device)
+    out2 = _paged_mma(t, num_splits)
+    assert np.all(out2[4] == 0.0) and np.all(out2[0] == 0.0)
+    np.testing.assert_allclose(np.delete(out2, 4, 0), np.delete(want, 4, 0),
+                               **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_splits", TC_PAGED_SPLITS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_mma_single_row(cuda_device, d, num_splits):
+    t = _on(_paged_decode_case(1, 8, d, 8, (1000,), seed=31), "bfloat16",
+            cuda_device)
+    out = _paged_mma(t, num_splits)
+    np.testing.assert_allclose(
+        out, _np(tpa.paged_attention_plain(*t[:5], t[5])),
+        **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_paged_mma_refuses_splits_above_its_cluster(cuda_device):
+    """The mma variant's splits are one thread-block cluster: an explicit
+    count above its most is refused before any launch, not cut."""
+    t = _on(_paged_decode_case(8, 8, 64, 8, TC_PAGED_CONTEXTS, seed=32),
+            "bfloat16", cuda_device)
+    before = tpa.launches.count
+    with pytest.raises(ValueError, match=r"\[1, 8\]"):
+        ops.paged_attention(*t[:5], occupancy=t[5],
+                            num_splits=tpa.max_splits("mma") + 1)
+    assert tpa.launches.count == before
+
+
+TC_SSD_CASES = [
+    # (B, S, H, G, N, d_skip): every S at both states, with and without
+    # d_skip; B alternating between 1 and 4, G between 1 and 2
+    ((1, 4)[i % 2], s, 8, (1, 2)[(i // 2) % 2], n, skip)
+    for i, (n, s, skip) in enumerate(itertools.product(
+        (64, 128), (1, 40, 128, 300, 1000, 1024, 2048), (False, True)))
+]
+
+
+def _ssd_mma(t, ds):
+    before = tss.launches.of("mma")
+    y, final = ops.ssd(*t[:5], chunk=128, d_skip=ds)
+    torch.cuda.synchronize()
+    assert tss.launches.of("mma") == before + 1, "not the mma variant"
+    return y, final
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_SSD_CASES)
+def test_ssd_mma_matches_plain(cuda_device, case):
+    b, s, h, g, n, skip = case
+    arrays = _ssd_inputs((b, s, h, 64, g, n), seed=s + n, d_skip=skip)
+    t = _on(arrays, "bfloat16", cuda_device)
+    t[1], t[2] = t[1].float(), t[2].float()          # dt, a in fp32
+    ds = t[5].float() if skip else None
+    y, final = _ssd_mma(t, ds)
+    assert y.dtype == torch.bfloat16 and final.dtype == torch.float32
+    want_y, want_f = tss.ssd_scan_plain(*t[:5], chunk=128, d_skip=ds)
+    assert np.all(np.isfinite(_np(y))) and np.all(np.isfinite(_np(final)))
+    np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOLS["bfloat16"])
+    np.testing.assert_allclose(_np(final), _np(want_f),
+                               **SSD_TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_mma_strong_decay_stays_finite(cuda_device, n):
+    """Log-decay summing far past 88 inside a chunk (a scaled by 8)."""
+    arrays = _ssd_inputs((1, 300, 4, 64, 1, n), seed=33, decay=8.0)
+    t = _on(arrays, "bfloat16", cuda_device)
+    t[1], t[2] = t[1].float(), t[2].float()
+    y, final = _ssd_mma(t, None)
+    assert np.all(np.isfinite(_np(y))) and np.all(np.isfinite(_np(final)))
+    want_y, want_f = tss.ssd_scan_plain(*t[:5], chunk=128)
+    np.testing.assert_allclose(_np(y), _np(want_y), **SSD_TOLS["bfloat16"])
+    np.testing.assert_allclose(_np(final), _np(want_f),
+                               **SSD_TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_paged_and_ssd_variants_follow_dtype_and_shape(cuda_device):
+    """bf16 at the main path's shapes launches the mma variants; fp32, and
+    bf16 at other shapes, the FMA ones, as ``kernel_variant`` says."""
+    for dtype, d, want in (("bfloat16", 64, "mma"), ("float32", 64, "fma"),
+                           ("bfloat16", 32, "fma")):
+        t = _on(_paged_decode_case(2, 4, d, 8, (70, 300), seed=34), dtype,
+                cuda_device)
+        assert tpa.kernel_variant(t[0].dtype, d, 4, t[0].device) == want
+        before = tpa.launches.of(want)
+        ops.paged_attention(*t[:5], occupancy=t[5])
+        assert tpa.launches.of(want) == before + 1
+    for dtype, n, chunk, want in (("bfloat16", 128, 128, "mma"),
+                                  ("float32", 128, 128, "fma"),
+                                  ("bfloat16", 128, 64, "fma"),
+                                  ("bfloat16", 32, 128, "fma")):
+        t = _on(_ssd_inputs((1, 200, 4, 64, 1, n), seed=35), dtype,
+                cuda_device)
+        t[1], t[2] = t[1].float(), t[2].float()
+        assert tss.kernel_variant(t[0].dtype, 64, n, chunk,
+                                  t[0].device) == want
+        before = tss.launches.of(want)
+        ops.ssd(*t[:5], chunk=chunk)
+        assert tss.launches.of(want) == before + 1
     torch.cuda.synchronize()
