@@ -21,6 +21,12 @@ Phases, in order; each prints one line and any failure exits non-zero:
    naming the variant that ran (``wgmma`` for bf16, ``fma`` for fp32) and
    the device time of one launch read from ``torch.profiler`` beside the
    CUDA-event mean;
+4b. the packed-prefill kernel at the speculative verify
+   chunk's layout, built by the engine's ``verify_lanes``: TinyLlama's
+   widths, max_batch 8 x (spec_k 4 + 1) = 40 lanes, draft depths 0-4 so
+   dead lanes sit between segments, one row unoccupied, two rows whose
+   dead lanes lie past their page run; fp32 (``fma``) and bf16
+   (``wgmma``); dead lanes must be exactly 0; times as phase 4;
 5. serving TinyLlama-1.1B at full width in fp32 (seeded random weights)
    under the ``chunked`` and ``packed`` schedulers, holding the greedy
    tokens against the model's contiguous-cache decode;
@@ -61,9 +67,32 @@ Phases, in order; each prints one line and any failure exits non-zero:
    ``LOGITS_RATIO`` times that of the same bf16 forward with the SSD on
    the ``fma`` kernel (chunk 64), so a rounding fault of the tensor-core
    kernel at model level fails the run;
-11. the kernel table as one JSON line (each row with the variant of the
-   main path), the card line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+11. the sampler on the card: threefry keys and random bits bit-equal to
+   the CPU over (seed, position, stream), and ``sample_tokens`` at
+   (8, 32000), temperature 0.8, top-k 50, top-p 0.9 equal to the CPU (a
+   flip only at a near-tie of the gumbel-perturbed scores, < 1e-3);
+12. sampled and speculative serving of TinyLlama-1.1B at published
+   widths: in fp32, seeded ``TemperatureSampling`` tokens under
+   ``chunked`` and ``packed`` equal the contiguous-cache decode with the
+   same sampler keyed by absolute position; ``spec_k=4`` greedy tokens
+   equal plain greedy (both with a near-tie exception, top-2 gap < 1e-3);
+   a spec-sampled run gives identical tokens in a fresh session; every
+   packed launch is a prefill or verify layer of the ``fma`` variant and
+   no paged launch runs; the accept rate and verify launches are printed,
+   and whether the verify chunk's x_last lane rewrites position ctx-1
+   with the decode step's bytes.  In bf16, ``spec_k=4`` greedy under
+   ``packed``: every request completes and every verify launch is the
+   ``wgmma`` variant; agreement with plain bf16 greedy is printed;
+13. the swap tier in bf16: four low-priority requests fill the batch and a
+   132-page pool, two high-priority arrivals preempt them mid-decode into
+   the host arena; every stream equals its uncontended run token for
+   token, preemptions >= 1 and resumed == preemptions, and after close no
+   arena slot is used and the pool is whole; the page moves' host seconds
+   are printed;
+14. the kernel table as one JSON line (each row with the variant of the
+   main path; the packed row's launches count the verify chunks of phase
+   12), the card line, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on the tensor cores, 67 TFLOP/s fp32 outside them.  It imports
@@ -378,10 +407,45 @@ def packed_case(torch, dtype, n_segs, seed=4):
     return [a.to(DEVICE) for a in args], (rows, seg, pos, ctx)
 
 
-def phase_packed(torch, timer, dtype, n_segs):
+def verify_case(torch, dtype, seed=12):
+    """The speculative verify chunk at TinyLlama's widths, laid out by the
+    engine's own ``verify_lanes``: max_batch 8 rows x (spec_k 4 + 1) = 40
+    lanes, draft depths nd mixed in 0..4 (dead lanes between segments),
+    row 6 unoccupied, contexts 64..1000; each row's block table holds its
+    run of ceil((ctx + nd) / 8) pages and zeros after it, as the engine's,
+    so the dead lanes of rows 1 and 7 sit at positions past their run."""
+    from repro_torch.serving.engine import verify_lanes
+    b, k, h, hkv, d, page, npg = 8, 4, 32, 4, 64, 8, 128
+    n_phys = 2048
+    ctx = np.asarray([64, 1000, 130, 377, 200, 640, 512, 997])
+    nd = np.asarray([4, 0, 3, 1, 4, 2, 0, 1])
+    occ = np.ones((b,), bool)
+    occ[6] = False
+    _, pos, seg, seg_ctx = verify_lanes(ctx, nd, occ, k)
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(n_phys)
+    rows = np.zeros((b, npg), np.int32)
+    used = 0
+    for i in range(b):
+        n = -(-int(seg_ctx[i]) // page)
+        rows[i, :n] = perm[used:used + n]
+        used += n
+    dt = getattr(torch, dtype)
+    c = len(seg)
+    q, kp, vp = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dt) for shape in
+        ((c, h, d), (n_phys, page, hkv, d), (n_phys, page, hkv, d))]
+    args = [q, kp, vp] + [torch.from_numpy(a) for a in
+                          (rows, seg, pos, seg_ctx)]
+    return [a.to(DEVICE) for a in args], (rows, seg, pos, seg_ctx)
+
+
+def phase_packed(torch, timer, dtype, n_segs, case=None):
+    """One packed-prefill row: the packed chunk of ``n_segs`` segments, or
+    ``case`` (inputs as :func:`packed_case` returns them)."""
     from repro_torch.kernels import packed_prefill as pp
     (q, kp, vp, rows, seg, pos, ctx), (rows_np, seg_np, pos_np, ctx_np) = \
-        packed_case(torch, dtype, n_segs)
+        case or packed_case(torch, dtype, n_segs)
     want = pp.packed_prefill_plain(q, kp, vp, rows, seg, pos, ctx)
     variant = pp.kernel_variant(q.dtype, q.shape[2], q.shape[1] // kp.shape[2],
                                 q.device)
@@ -592,6 +656,432 @@ def serve_bf16(torch):
         "paged_mma_launches": paged_tc,
         "decode_steps": paged_tc // cfg.n_layers}
     return summary, launches
+
+
+# ----------------------------------------------------------- phase 11
+
+
+def phase_sampler(torch, timer):
+    """The sampler on the card against its CPU run: PRNG keys and random
+    bits bit-equal over a grid of (seed, position, stream); tokens of
+    ``sample_tokens`` at (8, 32000), temperature 0.8, with top-k 50 and
+    top-p 0.9 equal (a flip only where the CPU's top two gumbel-perturbed
+    scores lie within 1e-3)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    seeds = torch.tensor([0, 1, 7, 2**31 - 1, 2**32 - 1])
+    pos = torch.tensor([0, 1, 7, 1023, 2**20])
+    grid = [t.reshape(-1) for t in torch.meshgrid(
+        seeds, pos, torch.arange(4), indexing="ij")]
+    cpu_key = kref.sample_key_ref(*grid)
+    card_key = kref.sample_key_ref(*[t.to(DEVICE) for t in grid],
+                                   device=DEVICE)
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(cpu_key, card_key)):
+        raise AssertionError("sampler: keys differ on the card")
+    v = 32000
+    if not torch.equal(kref.random_bits(cpu_key, v),
+                       kref.random_bits(card_key, v).cpu()):
+        raise AssertionError("sampler: random bits differ on the card")
+    g = torch.Generator().manual_seed(11)
+    logits = torch.randn((8, v), generator=g) * 3
+    b = logits.shape[0]
+    args = ([0.8] * b, [50] * b, [0.9] * b, list(range(b)),
+            [5, 99, 1023, 2**20, 0, 1, 7, 300])
+    cpu_t, _ = ops.sample_tokens(logits, *args)
+    card_logits = logits.to(DEVICE)
+    card_t, _ = ops.sample_tokens(card_logits, *args)
+    dist = kref.filtered_dist_ref(logits, *args[:3])
+    score = torch.log(torch.clamp(dist, min=1e-30)) + kref.gumbel(
+        kref.sample_key_ref(torch.tensor(args[3]), torch.tensor(args[4]), 0),
+        v)
+    top2 = torch.topk(score, 2).values
+    flips = [i for i in range(b) if int(card_t[i]) != int(cpu_t[i])]
+    for i in flips:
+        if float(top2[i, 0] - top2[i, 1]) >= 1e-3:
+            raise AssertionError(f"sampler: row {i} token {int(card_t[i])}"
+                                 f" != CPU {int(cpu_t[i])}")
+    ms = timer.ms(lambda: ops.sample_tokens(card_logits, *args), iters=10)
+    device_ms, top = sampler_profile(torch, lambda: ops.sample_tokens(
+        card_logits, *args))
+    return (f"keys and bits of {len(grid[0])} (seed, position, stream) "
+            f"keys bit-equal to the CPU; tokens (8, {v}) at T 0.8, top-k "
+            f"50, top-p 0.9: {b - len(flips)}/{b} equal"
+            f"{' (flips at near-ties: ' + str(flips) + ')' if flips else ''};"
+            f" sample_tokens {ms:.3f} ms by events, {device_ms:.3f} ms of "
+            f"device time (plain tensor ops; largest: {top})")
+
+
+def sampler_profile(torch, fn, iters: int = 5):
+    """Device time of one call of ``fn`` (every kernel it launches) and its
+    three largest ops by device time, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev(evt):
+        t = getattr(evt, "self_device_time_total", None)
+        return t if t is not None else getattr(evt, "self_cuda_time_total",
+                                               0.0)
+    evts = sorted(prof.key_averages(), key=dev, reverse=True)
+    total = sum(dev(e) for e in evts) / iters / 1e3
+    top = ", ".join(f"{e.key} {dev(e) / iters / 1e3:.3f} ms"
+                    for e in evts[:3])
+    return total, top
+
+
+# ------------------------------------------------------ phases 12 and 13
+
+
+def reference_sampled(torch, model, params, prompt, n_new, policy):
+    """Contiguous-cache decode with the port's sampler keyed by ABSOLUTE
+    position (the oracle the engine must reproduce); returns (tokens,
+    gap between the top two gumbel-perturbed scores at each pick)."""
+    from repro_torch.kernels import ref as kref
+    t_f, k_i, p_f, seed = policy.operands()
+    cache = model.init_cache(1, len(prompt) + n_new + 1, device=DEVICE)
+    toks, out, margins = list(prompt), [], []
+    for t in range(len(prompt) + n_new):
+        batch = {"tokens": torch.tensor([[toks[t]]], device=DEVICE),
+                 "cache_len": torch.tensor([t + 1], dtype=torch.int32,
+                                           device=DEVICE)}
+        logits, cache = model.decode_step(params, cache, batch)
+        if t < len(prompt) - 1:
+            continue
+        dist = kref.filtered_dist_ref(logits, [t_f], [k_i], [p_f])
+        key = kref.sample_key_ref(torch.tensor([seed], device=DEVICE),
+                                  torch.tensor([t + 1], device=DEVICE), 0,
+                                  DEVICE)
+        score = (torch.log(torch.clamp(dist, min=1e-30)) +
+                 kref.gumbel(key, dist.shape[-1]))[0]
+        top = torch.topk(score, 2).values.cpu().numpy()
+        out.append(int(torch.argmax(score).item()))
+        margins.append(float(top[0] - top[1]))
+        if len(out) == n_new:
+            return out, margins
+        toks.append(out[-1])
+
+
+def held(label, outs, refs, limit=1e-3):
+    """Each stream equals its reference, or first differs where the
+    reference's top-two margin is below ``limit``; returns notes."""
+    notes = []
+    for i, (out, (want, margins)) in enumerate(zip(outs, refs)):
+        if len(out) != len(want):
+            raise AssertionError(f"{label}: request {i} gave {len(out)} "
+                                 f"tokens, want {len(want)}")
+        for j, (a, b) in enumerate(zip(out, want)):
+            if a != b:
+                if margins[j] >= limit:
+                    raise AssertionError(
+                        f"{label}: request {i} token {j}: {a} != reference "
+                        f"{b} at top-2 margin {margins[j]:.3g}")
+                notes.append(f"req {i} diverges at token {j}, margin "
+                             f"{margins[j]:.3g}")
+                break
+    return "; ".join(notes) or "all tokens identical"
+
+
+def serve_run(torch, model, params, prompts, n_new, sampling=None,
+              warm=False, **config):
+    """One session: submit every prompt at once, wait, close.  Returns
+    (tokens, totals, launches by kernel and variant during the run)."""
+    from repro_torch import serving
+    session = serving.serve(model, params, serving.ServingConfig(**config),
+                            device=DEVICE)
+    try:
+        if warm:
+            session.warm()
+        reset_launches()
+        handles = [session.submit(p, max_new_tokens=n_new,
+                                  sampling=sampling) for p in prompts]
+        outs = [hnd.result(timeout=600) for hnd in handles]
+        counts = launch_counts()
+        totals = session.stats()["totals"]
+    finally:
+        session.close()
+    if totals["failed"]:
+        raise AssertionError(f"serve: {totals['failed']} requests failed")
+    return outs, totals, counts
+
+
+def launch_counts():
+    from repro_torch.kernels import packed_prefill, paged_attention
+    return {"paged_attention": paged_attention.launches.count,
+            "packed_prefill_attention": packed_prefill.launches.count,
+            "packed_by_variant": dict(packed_prefill.launches.by_variant),
+            "paged_by_variant": dict(paged_attention.launches.by_variant)}
+
+
+def check_verify_launches(label, cfg, totals, counts, variant):
+    """Spec mode replaces the decode step: every packed launch is one
+    layer of a prefill chunk or of a verify chunk, all ``variant``; no
+    paged launch.  Returns the verify launches."""
+    n_l = cfg.n_layers
+    rounds, chunks = totals["spec_rounds"], totals["prefill_chunks"]
+    total = counts["packed_prefill_attention"]
+    if rounds < 1 or total != n_l * (chunks + rounds) or \
+            counts["packed_by_variant"].get(variant, 0) != total or \
+            counts["paged_attention"]:
+        raise AssertionError(
+            f"{label}: packed launches {counts['packed_by_variant']} for "
+            f"{chunks} prefill chunks and {rounds} verify rounds (want "
+            f"{n_l} per chunk, all {variant}), paged "
+            f"{counts['paged_attention']} (want 0)")
+    return n_l * rounds
+
+
+def xlast_rewrite(torch, model, params, prompt):
+    """The verify chunk's x_last lane rewrites position ctx-1 each round.
+    Against what the decode step writes there for the same token (a
+    (B, 1, d) product through the paged kernel, where the verify lane is a
+    (1, LV, d) product through the packed kernel): are the K/V bytes of
+    that slot equal in every layer?  Returns (equal, max |K diff|,
+    max |V diff|)."""
+    from repro_torch import serving
+    session = serving.serve(model, params, serving.ServingConfig(
+        spec_k=4, num_pages=256, max_batch=4, max_seq_len=512,
+        prefill_chunk_tokens=128), device=DEVICE, start=False)
+    shard = session.engine.shards[0]
+    try:
+        session.submit(prompt, max_new_tokens=8)
+        with torch.inference_mode():
+            while not shard._active:
+                shard.step()                 # prefill; spec mode emits none
+            seq = shard._active[0]
+            pos = len(seq.tokens) - 1
+            page = int(seq.page_row[pos // shard.page_size])
+            slot = pos % shard.page_size
+
+            def kv():
+                return (shard.k_pages[:, page, slot].clone(),
+                        shard.v_pages[:, page, slot].clone())
+            shard._decode_batch([seq])       # the decode step's write
+            dk, dv = kv()
+            shard.step()                     # one round: lane 0 rewrites
+            vk, vv = kv()
+    finally:
+        session.close()
+    return (bool(torch.equal(dk, vk) and torch.equal(dv, vv)),
+            float((dk.float() - vk.float()).abs().max()),
+            float((dv.float() - vv.float()).abs().max()))
+
+
+def serve_spec_fp32(torch):
+    """Phase 12: sampled and speculative serving, fp32, TinyLlama-1.1B at
+    published widths (seeded weights).  Returns (lines, launches)."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("tinyllama-1.1b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=DEVICE)
+    rng = np.random.RandomState(12)
+    v = cfg.vocab_size
+    prompts = [rng.randint(1, v, size=n).tolist() for n in (40, 97, 150, 64)]
+    n_new = 16
+    conf = dict(num_pages=512, max_batch=4, max_seq_len=256,
+                prefill_chunk_tokens=128)
+    pol = serving.TemperatureSampling(temperature=0.8, seed=42)
+    with torch.inference_mode():
+        refs_s = [reference_sampled(torch, model, params, p, n_new, pol)
+                  for p in prompts]
+        refs_g = [reference_greedy(torch, model, params, p, n_new)
+                  for p in prompts]
+    lines, launches = [], {}
+
+    def add(counts):
+        for name in ("paged_attention", "packed_prefill_attention"):
+            launches[name] = launches.get(name, 0) + counts[name]
+
+    for sched in ("chunked", "packed"):
+        outs, _, counts = serve_run(torch, model, params, prompts, n_new,
+                                    sampling=pol, scheduler=sched, **conf)
+        add(counts)
+        lines.append(f"sampled T 0.8 {sched}: 4/4 requests match the "
+                     f"position-keyed contiguous decode "
+                     f"({held('sampled ' + sched, outs, refs_s)})")
+    outs, totals, counts = serve_run(torch, model, params, prompts, n_new,
+                                     warm=True, spec_k=4, **conf)
+    add(counts)
+    n_verify = check_verify_launches("spec greedy fp32", cfg, totals, counts,
+                                     "fma")
+    lines.append(f"spec_k 4 greedy: 4/4 requests match plain greedy "
+                 f"({held('spec greedy', outs, refs_g)}); accept rate "
+                 f"{totals['accept_rate']:.3f} ({totals['draft_accepted']}/"
+                 f"{totals['draft_proposed']}); {totals['spec_rounds']} "
+                 f"rounds, verify launches {n_verify} "
+                 f"(packed by variant {counts['packed_by_variant']})")
+    spol = serving.TemperatureSampling(temperature=0.8, seed=7)
+    runs = []
+    for _ in range(2):
+        outs, totals, counts = serve_run(torch, model, params, prompts,
+                                         n_new, sampling=spol, spec_k=4,
+                                         scheduler="packed", **conf)
+        add(counts)
+        check_verify_launches("spec sampled fp32", cfg, totals, counts,
+                              "fma")
+        runs.append((outs, totals["accept_rate"]))
+    if runs[0][0] != runs[1][0] or any(len(o) != n_new for o in runs[0][0]):
+        raise AssertionError("spec sampled: a fresh session gave other "
+                             "tokens")
+    lines.append(f"spec_k 4 sampled T 0.8 packed: identical in two fresh "
+                 f"sessions, accept rate {runs[0][1]:.3f}")
+    eq, dk, dv = xlast_rewrite(torch, model, params, prompts[1])
+    lines.append(f"x_last rewrite of position ctx-1 (verify lane vs decode "
+                 f"step): bytes {'equal' if eq else 'differ'} (max |dK| "
+                 f"{dk:.3g}, |dV| {dv:.3g})")
+    del params
+    torch.cuda.empty_cache()
+    return lines, launches
+
+
+def serve_spec_bf16(torch):
+    """Phase 12, bf16: speculative greedy decoding through the wgmma verify
+    chunk; every request completes, every verify launch is the wgmma
+    variant.  Agreement with plain bf16 greedy is reported, not held:
+    two bf16 kernels round differently, and random weights leave many
+    near-ties at bf16's resolution."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=DEVICE)
+    rng = np.random.RandomState(13)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
+               for n in rng.randint(64, 257, size=8)]
+    n_new = 32
+    conf = dict(num_pages=2048, max_batch=8, max_seq_len=512,
+                prefill_chunk_tokens=256, scheduler="packed")
+    t0 = time.perf_counter()
+    outs, totals, counts = serve_run(torch, model, params, prompts, n_new,
+                                     warm=True, spec_k=4, **conf)
+    wall = time.perf_counter() - t0
+    if any(len(o) != n_new for o in outs):
+        raise AssertionError("spec bf16: a request came back short")
+    n_verify = check_verify_launches("spec greedy bf16", cfg, totals, counts,
+                                     "wgmma")
+    plain, _, _ = serve_run(torch, model, params, prompts, n_new, **conf)
+    same = sum(a == b for o, p in zip(outs, plain) for a, b in zip(o, p))
+    eq, dk, dv = xlast_rewrite(torch, model, params, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+    line = (f"bf16 spec_k 4 greedy packed: 8/8 requests complete in "
+            f"{wall:.2f} s, accept rate {totals['accept_rate']:.3f}, "
+            f"{totals['spec_rounds']} rounds, verify launches {n_verify} "
+            f"all wgmma (packed by variant {counts['packed_by_variant']}); "
+            f"tokens equal to plain bf16 greedy {same}/{8 * n_new}; x_last "
+            f"rewrite bytes {'equal' if eq else 'differ'} (max |dK| "
+            f"{dk:.3g}, |dV| {dv:.3g})")
+    return line, {"packed_prefill_attention":
+                  counts["packed_prefill_attention"],
+                  "paged_attention": counts["paged_attention"]}
+
+
+def serve_swap_bf16(torch):
+    """Phase 13: the swap tier in bf16, TinyLlama-1.1B at published widths.
+    Four low-priority requests fill the batch and the 132-page pool; two
+    high-priority arrivals preempt them mid-decode into the host arena.
+    Every stream equals its uncontended run (one request at a time on a
+    large pool) token for token — a victim gets every written position
+    back bit for bit and resumes straight into decode — preemptions >= 1,
+    resumed == preemptions, and after close the arena and the pool are
+    whole.  Returns (summary, launches)."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.swap import page_nbytes
+
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=DEVICE)
+    rng = np.random.RandomState(14)
+    v = cfg.vocab_size
+    lows = [rng.randint(1, v, size=200).tolist() for _ in range(4)]
+    highs = [rng.randint(1, v, size=200).tolist() for _ in range(2)]
+    n_lo, n_hi = 64, 32
+    base = dict(page_size=8, max_batch=4, max_seq_len=512,
+                prefill_chunk_tokens=128)
+    # uncontended: one request at a time on a pool that never fills
+    session = serving.serve(model, params, serving.ServingConfig(
+        num_pages=1024, **base), device=DEVICE)
+    try:
+        refs = [session.submit(p, max_new_tokens=n).result(timeout=600)
+                for p, n in [(p, n_lo) for p in lows] +
+                [(p, n_hi) for p in highs]]
+    finally:
+        session.close()
+    n_pages = 4 * (-(-(200 + n_lo) // 8))            # 4 lows fill the pool
+    slots = 256
+    conf = serving.ServingConfig(
+        num_pages=n_pages, admission="priority", eviction="swap",
+        # a bf16 page is sized as uint16 (same itemsize; numpy has no
+        # bfloat16 without ml_dtypes)
+        swap_bytes=slots * page_nbytes(cfg.n_layers, 8, cfg.n_kv_heads,
+                                       cfg.head_dim, "uint16"),
+        priority_classes=("hi:priority=10", "lo:priority=0"), **base)
+    session = serving.serve(model, params, conf, device=DEVICE)
+    shard = session.engine.shards[0]
+    try:
+        session.warm()
+        reset_launches()
+        t0 = time.perf_counter()
+        lo_h = [session.submit(p, max_new_tokens=n_lo, priority_class="lo")
+                for p in lows]
+        deadline = time.perf_counter() + 300
+        while sum(1 for h in lo_h if len(h.out_tokens) >= 8) < 4:
+            if time.perf_counter() > deadline:
+                raise AssertionError("swap: the lows never all decoded")
+            time.sleep(0.005)
+        hi_h = [session.submit(p, max_new_tokens=n_hi, priority_class="hi")
+                for p in highs]
+        outs = [h.result(timeout=600) for h in lo_h + hi_h]
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st = shard.stats()
+        totals = session.stats()["totals"]
+        preempted = [h.preemptions for h in lo_h + hi_h]
+    finally:
+        session.close()
+    if totals["failed"] or totals["preemptions"] < 1 or \
+            totals["resumed"] != totals["preemptions"]:
+        raise AssertionError(f"swap: preemptions {totals['preemptions']}, "
+                             f"resumed {totals['resumed']}, failed "
+                             f"{totals['failed']}")
+    if shard.swap_arena.slots_used() or \
+            shard.pool.free_count() != n_pages:
+        raise AssertionError(f"swap: leaked {shard.swap_arena.slots_used()}"
+                             f" arena slots, pool {shard.pool.free_count()}"
+                             f"/{n_pages} free")
+    for i, (out, want) in enumerate(zip(outs, refs)):
+        if out != want:
+            j = next((j for j, (a, b) in enumerate(zip(out, want))
+                      if a != b), min(len(out), len(want)))
+            raise AssertionError(
+                f"swap: request {i} (preempted {preempted[i]}x) differs "
+                f"from its uncontended run at token {j} of {len(out)}")
+    del params
+    torch.cuda.empty_cache()
+    summary = {"requests": len(outs), "preemptions": totals["preemptions"],
+               "resumed": totals["resumed"],
+               "preempted_per_request": preempted,
+               "pages_out": totals["swapped_out"],
+               "pages_in": totals["swapped_in"],
+               "page_bytes": shard.swap_arena.slot_nbytes,
+               "swap_out_s": st["swap_out_s"], "swap_in_s": st["swap_in_s"],
+               "wall_s": wall,
+               "tokens": "all identical to the uncontended runs",
+               "arena_slots_used_after": shard.swap_arena.slots_used(),
+               "pool_free_after": shard.pool.free_count()}
+    return summary, {"packed_prefill_attention":
+                     counts["packed_prefill_attention"],
+                     "paged_attention": counts["paged_attention"]}
 
 
 # ----------------------------------------------------------- phase 7
@@ -972,6 +1462,18 @@ def main() -> int:
                 f"bound {row['bound_ms']:.4f} ({row['bound_by']}) [{card}] "
                 f"{time.perf_counter() - t0:.1f} s")
 
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        row = phase_packed(torch, timer, dtype, 8,
+                           case=verify_case(torch, dtype))
+        kernels[("verify", dtype)] = row
+        say(f"[4b packed verify layout {dtype}] 40 lanes, 8 rows, nd 0-4, "
+            f"dead lanes exactly 0; variant {row['variant']} max_abs_err "
+            f"{row['max_abs_err']:.3g}; ms {row['ms']:.4f} profiler "
+            f"{fmt_ms(row['profiler_ms'])} plain {row['plain_ms']:.4f} "
+            f"library {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
+            f"({row['bound_by']}) [{card}] {time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     for line in serve_fp32(torch):
         say(f"[5 serve fp32] {line}")
@@ -1031,6 +1533,31 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + count
         say(f"[10 model bf16] {json.dumps(summary)} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    say(f"[11 sampler] {phase_sampler(torch, timer)} [{card}] "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def add(path_launches):
+        for name, count in path_launches.items():
+            launches[name] = launches.get(name, 0) + count
+
+    t0 = time.perf_counter()
+    lines, path_launches = serve_spec_fp32(torch)
+    add(path_launches)
+    for line in lines:
+        say(f"[12 spec fp32] {line}")
+    say(f"[12 spec fp32] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    line, path_launches = serve_spec_bf16(torch)
+    add(path_launches)
+    say(f"[12 spec bf16] {line} [{card}] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    summary, path_launches = serve_swap_bf16(torch)
+    add(path_launches)
+    say(f"[13 swap bf16] {json.dumps(summary)} [{card}] "
+        f"{time.perf_counter() - t0:.1f} s")
 
     table = []
     for key, name in ((("paged", "bfloat16"), "paged_attention"),

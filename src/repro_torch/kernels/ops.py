@@ -16,7 +16,7 @@ from .paged_attention import paged_attention
 from .ssd_scan import ssd_scan as ssd
 
 __all__ = ["flash_attention", "paged_attention", "packed_prefill_attention",
-           "ssd", "sample_tokens", "prepare"]
+           "ssd", "sample_tokens", "spec_verify_rows", "prepare"]
 
 
 def prepare(device) -> None:
@@ -29,9 +29,34 @@ def prepare(device) -> None:
             build.library(name)
 
 
-def sample_tokens(logits, temperature):
-    """Token selection: logits (B,V) and a host-side (B,) sequence of
-    temperatures → (tokens (B,) int64, logprobs (B,) float32).  Greedy
-    rows (``temperature <= 0``) are an exact argmax with logprob 0; see
-    :func:`repro_torch.kernels.ref.sample_tokens_ref`."""
-    return ref.sample_tokens_ref(logits, temperature)
+def sample_tokens(logits, temperature, top_k, top_p, seed, position, *,
+                  stream=ref.STREAM_TARGET):
+    """Fused replay-exact token sampling: logits (B,V) + per-row operands
+    (B,) → (tokens (B,) int64, logprobs (B,) float32).  ``temperature <=
+    0`` rows are exact ``argmax(logits)`` (logprob 0); the others draw from
+    the stateless counter PRNG keyed ``(seed, position, stream)`` (see
+    :mod:`repro_torch.kernels.ref`), JAX's threefry bits, which is what
+    makes swap/migration replay reproduce tokens without RNG state.
+
+    There is no kernel: as in the JAX package (whose ``sample_tokens`` has
+    no Pallas variant) the math is a handful of (B,V) tensor ops on the
+    logits' device.  The operands may be host arrays; when they say every
+    row is greedy, only the argmax runs (the same tokens and logprobs the
+    full formula gives those rows, without its sort and PRNG launches)."""
+    temps = torch.as_tensor(temperature, dtype=torch.float32)
+    if temps.device.type == "cpu" and not bool((temps > 0.0).any()):
+        toks = torch.argmax(logits, dim=-1)
+        return toks, torch.zeros(toks.shape, dtype=torch.float32,
+                                 device=logits.device)
+    return ref.sample_tokens_ref(logits, temps, top_k, top_p, seed,
+                                 position, stream=stream)
+
+
+def spec_verify_rows(p_dist, q_dist, draft_toks, n_draft, seed, base_pos):
+    """Fused speculative-decode rejection sampling (batched rows); see
+    :func:`repro_torch.kernels.ref.spec_verify_rows_ref` for the accept
+    rule, residual construction and replay-keying contract.  Like
+    :func:`sample_tokens` it is plain tensor math on the device (the JAX
+    package has no Pallas variant either)."""
+    return ref.spec_verify_rows_ref(p_dist, q_dist, draft_toks, n_draft,
+                                    seed, base_pos)

@@ -3,11 +3,13 @@
 Sessions (:func:`serve` → :class:`ServingSession` → :class:`RequestHandle`)
 over sharded, SMR-isolated engines on one device; named admission/eviction
 policies; the fault registry (:class:`FaultSpec` / :func:`parse_fault`) and
-the session watchdog behind ``ServingConfig.watchdog`` (DESIGN.md §14).
+the session watchdog behind ``ServingConfig.watchdog`` (DESIGN.md §14); the
+legacy :class:`PagedServingEngine` kwargs survive one release as
+``DeprecationWarning`` shims over :class:`ServingConfig`.
 """
 
 from .config import PriorityClass, ServingConfig, parse_priority_class
-from .engine import Request
+from .engine import PagedServingEngine, Request
 from .faults import FaultSpec, fault_kinds, parse_fault
 from .policies import (
     admission_policies,
@@ -38,6 +40,7 @@ from .watchdog import SessionWatchdog
 
 __all__ = [
     "serve",
+    "PagedServingEngine",
     "ServingConfig",
     "PriorityClass",
     "parse_priority_class",

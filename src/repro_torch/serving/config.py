@@ -8,9 +8,7 @@ construction time — an unknown policy or scheme name fails in
 ``ServingConfig``, not three threads deep in an engine loop.
 
 Torch port: there is no ``backend`` field (the kernels dispatch by the
-device the session runs on), and the paths not ported yet — speculative
-decoding and the host swap tier — are refused here with the ROADMAP item
-that ports them.
+device the session runs on).
 """
 
 from __future__ import annotations
@@ -243,10 +241,11 @@ class ServingConfig:
         if self.swap_bytes < 0:
             raise ValueError(f"swap_bytes must be >= 0, got "
                              f"{self.swap_bytes}")
-        if self.eviction == "swap" or self.swap_bytes > 0:
-            raise NotImplementedError(
-                "the host swap tier (eviction='swap', swap_bytes > 0) is not "
-                "ported to torch yet (ROADMAP A.6: swap movers)")
+        if self.eviction == "swap" and self.swap_bytes == 0:
+            raise ValueError(
+                "eviction='swap' needs a host arena: set swap_bytes to the "
+                "per-shard host budget (repro_torch.runtime.swap.page_nbytes "
+                "sizes one page)")
         if self.priority_classes is not None:
             classes = tuple(parse_priority_class(c) if isinstance(c, str)
                             else c for c in self.priority_classes)
@@ -262,10 +261,6 @@ class ServingConfig:
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0 (0 = off), got "
                              f"{self.spec_k}")
-        if self.spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported to torch "
-                "yet (ROADMAP A.7: speculative decoding)")
         if self.spec_draft != "auto":
             raise ValueError(f"unknown spec_draft {self.spec_draft!r}; "
                              f"engine v1 only derives drafts ('auto')")

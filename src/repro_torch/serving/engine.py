@@ -41,18 +41,39 @@ the reference's):
   scheduler always takes the (segments x max_pages) rectangle with its
   power-of-two segment bucket; the reference's kernel-less ragged layout
   (``_paged_step_packed_flat``) is not ported.
-* Not ported yet, and refused by ``ServingConfig`` / ``_validate``:
-  speculative decoding, the host swap tier, and sampling with
-  temperature > 0.
+* Sampling draws JAX's threefry bits (``kernels/ref.py``), so a seeded
+  request samples the tokens the reference engine samples; the sampler and
+  the speculative accept rule are plain tensor math on the device, as in
+  the reference (neither has a Pallas kernel there).
+* Speculative decoding: the draft re-prefills densely over the batch's
+  token buffer trimmed to its longest stream rounded up to a page (the
+  reference pads to ``max_pages * page_size``; the trim gives the same
+  rows at a fraction of the score tensor), and the verify chunk attends
+  through ``ops.packed_prefill_attention`` at ``max_batch * (spec_k + 1)``
+  lanes with dead lanes interleaved.
+* The host swap tier moves a victim's pages with one batched gather and
+  one synchronous device-to-host copy (the reference loops page by page);
+  bf16 pages travel as their 16-bit patterns (the arena holds ``uint16``),
+  since the copied arena module sizes its buffers with numpy dtypes.  The
+  partly filled last page spills too, and a fully restored sequence
+  resumes straight into decode (the reference re-ingests the tail by
+  prefill): the port's prefill and decode kernels round differently, and
+  this keeps a resumed stream bit-exact on the card.
 * Kernels are built when the shard is constructed (``ops.prepare``), never
   inside a step, where a first build would hold the step lock and read as
-  a stall to the watchdog.
+  a stall to the watchdog.  :meth:`_ShardEngine.warm_packed`,
+  :meth:`~_ShardEngine.warm_spec` and :meth:`~_ShardEngine.warm_swap` run
+  each remaining first-use path once (``ServingSession.warm``).
 
 One :class:`_ShardEngine` is one SMR domain: in a :class:`ShardedEngine`
 session each shard owns its own pool + prefix cache + (by default) its own
 scheme instance, so a stalled thread pins O(K) pages *of one shard* and the
 others keep reclaiming — the paper's robustness property applied as an
 architecture decision (DESIGN.md §11).
+
+:class:`PagedServingEngine` survives one release as a ``DeprecationWarning``
+shim mapping the old kwargs onto :class:`ServingConfig`; new code goes
+through :func:`repro_torch.serving.serve`.
 
 Dense-family models only (engine v1).
 """
@@ -63,6 +84,7 @@ import itertools
 import threading
 import time
 import traceback
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -71,11 +93,14 @@ import torch
 
 from ..core.smr.base import SmrScheme
 from ..kernels import ops
+from ..kernels import ref as kref
 from ..models.layers import apply_rope, rms_norm, rope_angles
 from ..models.params import DTYPES, resolve_device
+from ..models.registry import derive_draft
 from ..models.transformer import _qkv, ffn_apply
 from ..runtime.block_pool import BlockPool, PageNode
 from ..runtime.prefix_cache import PrefixCache
+from ..runtime.swap import SwapArena, SwapArenaFullError, SwapChecksumError
 from .config import ServingConfig
 from .faults import build_fault_line
 from .policies import as_admission_policy, as_scheduler_policy
@@ -104,9 +129,9 @@ class Request:
     # deadline expiry) — surfaced by RequestHandle.result()
     error: Optional[str] = None
     # named sampling policy (or instance): resolved to a SamplingPolicy by
-    # _validate() on the caller thread.  None → greedy.  The policy carries
-    # the per-request seed, stop sequences and the logprobs flag
-    # (DESIGN.md §17); the torch port serves greedy policies only
+    # _validate() on the caller thread.  None → greedy (bit-identical to
+    # the pre-sampling engine).  The policy carries the per-request seed,
+    # stop sequences and the logprobs flag (DESIGN.md §17)
     sampling: Optional[object] = None
     req_id: int = field(default_factory=itertools.count().__next__)
     out_tokens: List[int] = field(default_factory=list)
@@ -117,10 +142,11 @@ class Request:
     cancelled: threading.Event = field(default_factory=threading.Event)
     # "waiting" → "prefilling" → "active" → "done" | "cancelled" | "failed"
     # (engine-owned; "prefilling" = pages reserved, prompt chunks still
-    # being ingested under the step budget)
+    # being ingested under the step budget).  A preempted request parks as
+    # "swapped" — K/V pages spilled to the host arena, re-queued — and
+    # goes back through "prefilling" when re-admitted (DESIGN.md §15)
     status: str = "waiting"
-    # times this request was preempted into a host swap arena (always 0:
-    # the swap tier is not ported yet)
+    # times this request was preempted into the host swap arena
     preemptions: int = 0
     # latency surface: submit() stamp + one perf_counter per emitted token,
     # so TTFT and inter-token latencies are measurable without polling
@@ -134,12 +160,15 @@ class Request:
     # observed-only ITL SLO (priority class), counted in stats()
     _itl_slo_s: Optional[float] = None
     # replay-prompt cursor: out_tokens[:_folded] are already folded into
-    # ``prompt`` by an earlier migration — folding ALL emitted tokens
-    # again would duplicate them in the replay prompt
+    # ``prompt`` by an earlier preemption/migration — folding ALL emitted
+    # tokens again would duplicate them in the replay prompt
     _folded: int = 0
-    # ITL gap accounting (DESIGN.md §17): set by migration, the next
-    # _emit() marks the incoming inter-token interval as a service gap —
-    # excluded from RequestHandle.itl() and the ITL-SLO observation,
+    # positions 0.._swap_tokens-1 of the replay prompt have their K/V in
+    # the shard's swap arena
+    _swap_tokens: int = 0
+    # ITL gap accounting (DESIGN.md §17): set by preemption/migration, the
+    # next _emit() marks the incoming inter-token interval as a service
+    # gap — excluded from RequestHandle.itl() and the ITL-SLO observation,
     # reported separately via gaps()/stats()
     _gap_pending: bool = False
     _gap_marks: List[int] = field(default_factory=list)
@@ -153,10 +182,15 @@ class Request:
         This IS the teacher-forcing mechanism every resume path relies on:
         folded tokens are re-ingested as PROMPT tokens by prefill (their
         K/V reproduced from the recorded ids, never re-sampled), so the
-        emitted stream is force-fed on replay.  ``max_new_tokens`` shrinks
-        by the same count so the request's total budget is unchanged.
-        Idempotent per token via the ``_folded`` cursor — a request
-        migrated twice must not fold the first leg's tokens twice."""
+        emitted stream is force-fed on replay whatever the sampling policy
+        — the engine does not depend on greedy determinism here.  Fresh
+        positions after the fold re-enter the sampler with the same
+        (seed, absolute_position) PRNG key the uninterrupted run would
+        have used, which is the second half of the replay-exactness
+        argument (DESIGN.md §17).  ``max_new_tokens`` shrinks by the same
+        count so the request's total budget is unchanged.  Idempotent per
+        token via the ``_folded`` cursor — a request preempted or migrated
+        twice must not fold the first leg's tokens twice."""
         new = self.out_tokens[self._folded:]
         if new:
             self.prompt = list(self.prompt) + new
@@ -166,8 +200,28 @@ class Request:
     def next_position(self) -> int:
         """Absolute position (in the request's original prompt + output
         stream) of the NEXT token to be sampled — invariant under
-        fold_emitted()."""
+        fold_emitted(), the counter-PRNG's replay coordinate."""
         return len(self.prompt) + len(self.out_tokens) - self._folded
+
+
+def verify_lanes(ctx, nd, occ, spec_k: int):
+    """The speculative verify chunk's lane layout, host side: B rows of
+    ``spec_k + 1`` lanes each, lane ``i * (spec_k + 1) + j`` holding row
+    i's token j at absolute position ``ctx[i] - 1 + j``.  A lane is live
+    when ``j <= nd[i]`` and row i is occupied; dead lanes get segment -1
+    (their positions may lie past the row's page run: nothing may index
+    with them).  ctx, nd, occ: (B,) host arrays.  Returns (lane_row (LV,),
+    positions (LV,) int32, seg_ids (LV,) int32, seg_ctx (B,) int32: one
+    past each row's last live position, 0 for unoccupied rows)."""
+    lanes_per = spec_k + 1
+    lv = len(ctx) * lanes_per
+    lane_row = np.arange(lv) // lanes_per
+    lane_j = np.arange(lv) % lanes_per
+    positions = (np.asarray(ctx)[lane_row] - 1 + lane_j).astype(np.int32)
+    live = (lane_j <= np.asarray(nd)[lane_row]) & np.asarray(occ)[lane_row]
+    seg_ids = np.where(live, lane_row, -1).astype(np.int32)
+    seg_ctx = np.where(occ, np.asarray(ctx) + np.asarray(nd), 0)
+    return lane_row, positions, seg_ids, seg_ctx.astype(np.int32)
 
 
 class _Seq:
@@ -194,7 +248,7 @@ class _ShardEngine:
 
     def __init__(self, model, params, config: ServingConfig, *,
                  device=None, smr: Optional[SmrScheme] = None,
-                 shard_id: int = 0):
+                 shard_id: int = 0, prefix_traversal=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"engine v1 serves dense models, got family "
@@ -222,7 +276,11 @@ class _ShardEngine:
         self.prefix_cache = PrefixCache(
             self.smr, self.pool, config.page_size,
             max_entries=config.prefix_cache_entries,
-            traversal=config.prefix_traversal, eviction=config.eviction)
+            # prefix_traversal= lets the legacy shim pass a live
+            # TraversalPolicy instance (config carries names only)
+            traversal=(prefix_traversal if prefix_traversal is not None
+                       else config.prefix_traversal),
+            eviction=config.eviction)
         self.admission = as_admission_policy(config.admission)
         self.scheduler = as_scheduler_policy(config.scheduler)
         # the kernels build here, on the constructing thread, never inside
@@ -247,18 +305,60 @@ class _ShardEngine:
         # a decode iteration that already read the block tables
         self._step_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
+        # speculative decoding: a sliced-parameter draft proposes spec_k
+        # tokens per round; the target verifies them in ONE packed chunk
+        # call with fused on-device rejection sampling.  The draft runs as
+        # a pure function of the recorded token stream (its cache is
+        # rebuilt inside the propose call each round), so draft behavior —
+        # and with it the accept pattern and the emitted stream — is
+        # replay-exact by construction (DESIGN.md §17)
+        self.spec_k = config.spec_k
+        self.draft_cfg = None
+        self.draft_params = None
+        if self.spec_k > 0:
+            draft_model, self.draft_params = derive_draft(
+                model, params, config.spec_draft, config.spec_draft_layers)
+            self.draft_cfg = draft_model.cfg
+        # host swap tier (DESIGN.md §15): the arena exists whenever the
+        # config budgets host bytes; PREEMPTION additionally requires the
+        # eviction policy to opt in via its ``swaps`` marker (resolved from
+        # the cache's bound policy so instances work, not just names).  A
+        # bf16 page is held as its 16-bit pattern: the arena sizes its
+        # buffers with numpy dtypes, and numpy has no bfloat16
+        self.swap_arena: Optional[SwapArena] = None
+        if config.swap_bytes > 0:
+            # the arena's slot allocator negotiates the same scheme as the
+            # BlockPool free list (lock-free by default, "locked" fallback)
+            self.swap_arena = SwapArena(
+                config.swap_bytes, n_layers=L, page_size=config.page_size,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                dtype=("uint16" if self.dtype == torch.bfloat16
+                       else cfg.dtype), scheme=config.pool_scheme)
+        self.swap_enabled = self.swap_arena is not None and \
+            getattr(self.prefix_cache.eviction, "swaps", False)
         self.steps = 0
         self.n_completed = 0
         self.n_cancelled = 0
         self.n_failed = 0
-        # SLO counters (stats())
+        # swap tier + SLO counters (stats())
+        self.n_preemptions = 0          # sequences preempted to the arena
+        self.n_resumed = 0              # swapped sequences re-admitted
         self.n_slo_cancelled = 0        # TTFT SLO expiries (subset of
         #                                 n_cancelled)
         self.n_itl_violations = 0       # observed inter-token SLO misses
-        # ITL gap accounting: intervals spanning a migration stall,
-        # excluded from itl() and the SLO observation
+        # host seconds spent moving pages device→host (gather + copy) and
+        # host→device (copy + scatter + sync)
+        self.swap_out_s = 0.0
+        self.swap_in_s = 0.0
+        # ITL gap accounting: intervals spanning a preemption park or a
+        # migration stall, excluded from itl() and the SLO observation
         self.n_gap_intervals = 0
         self.gap_seconds = 0.0
+        # speculative decoding counters (stats()): accept_rate =
+        # draft_accepted / draft_proposed
+        self.n_draft_proposed = 0
+        self.n_draft_accepted = 0
+        self.n_spec_rounds = 0          # verify chunks (one per round)
         # prefill efficiency counters (stats()): every fixed-shape chunk
         # call pays for C lanes — `prefill_tokens_wasted` counts the padded
         # lanes that bought nothing, and the packed pair shows how many
@@ -324,13 +424,6 @@ class _ShardEngine:
         # unknown name raises at submit()/receive_migrated() time, never
         # inside the step loop (idempotent — instances pass through)
         req.sampling = as_sampling_policy(req.sampling)
-        if req.sampling.temperature > 0.0:
-            raise NotImplementedError(
-                f"request {req.req_id}: sampling policy "
-                f"{req.sampling.name!r} has temperature "
-                f"{req.sampling.temperature} > 0, which the torch port does "
-                f"not serve yet (ROADMAP A.5: JAX's threefry bits); use "
-                f"greedy sampling")
         if not req.prompt:
             raise ValueError(f"request {req.req_id} has an empty prompt "
                              f"(need >= 1 token to prefill)")
@@ -585,6 +678,194 @@ class _ShardEngine:
         x = self._layers(x, angles, write, attend)
         return self._logits(x[:, 0])
 
+    @staticmethod
+    def _operands(seqs, n: int):
+        """Sampling operands of ``seqs`` padded to ``n`` rows (padding rows
+        greedy): sampf (n, 2) float32 [temperature, top_p] and sampi (n, 2)
+        int64 [top_k, seed], host arrays."""
+        sampf = np.zeros((n, 2), np.float32)
+        sampi = np.zeros((n, 2), np.int64)
+        for i, seq in enumerate(seqs):
+            sp = seq.req.sampling
+            sampf[i] = (sp.temperature, sp.top_p)
+            sampi[i] = (sp.top_k, sp.seed)
+        return sampf, sampi
+
+    def _sample(self, logits, sampf, sampi, spos):
+        """Fused sampling of logits (N, V) with host operands (sampf,
+        sampi as from :meth:`_operands`, spos (N,) the absolute position
+        each row samples AT, the counter-PRNG replay coordinate) → host
+        (tokens, logprobs).  The one device→host sync of a step."""
+        toks, lps = ops.sample_tokens(logits, sampf[:, 0], sampi[:, 0],
+                                      sampf[:, 1], sampi[:, 1], spos)
+        return toks.cpu().numpy(), lps.cpu().numpy()
+
+    def _draft_propose(self, tok_buf, ctx, sampf, sampi):
+        """Draft model: propose spec_k tokens per batch row, as a PURE
+        function of the recorded token stream.
+
+        tok_buf (B, S) int64 — each row's full recorded stream (prompt +
+        emitted tokens), zero-padded; S is the batch's longest stream
+        rounded up to a page (rows are causal, so the padding past a row's
+        stream never reaches it); ctx (B,) its length.  The draft has NO
+        persistent KV cache: every round re-prefills the stream densely
+        (fp32 attention in plain PyTorch, as the reference's einsum),
+        reads the hidden state at ctx-1, then runs spec_k-1 incremental
+        steps against the just-built cache.  That costs a re-prefill per
+        round but buys the replay property outright: draft proposals
+        depend only on (recorded stream, seed, position), never on which
+        schedule of preemptions/migrations built a cache — so the accept
+        pattern and the emitted stream are resume-exact by construction
+        (DESIGN.md §17).
+
+        sampf/sampi (host, as from :meth:`_operands`): the draft proposes
+        through the SAME filter as the target (q and p supported on the
+        same candidate set keeps the rejection-sampling correctness
+        argument clean) and draws with keys (seed, ctx + j, STREAM_DRAFT).
+        Greedy rows propose exact argmax, which makes spec-greedy ≡
+        plain-greedy token for token.
+
+        Returns (d_toks (B, spec_k) int64, q_dists (B, spec_k, V) float32)
+        where slot j is the proposal for absolute position ctx + j."""
+        dcfg = self.draft_cfg
+        dp = self.draft_params
+        kd = self.spec_k
+        b, s = tok_buf.shape
+        hkv, dh = dcfg.n_kv_heads, dcfg.head_dim
+        g = dcfg.n_heads // hkv
+        scale = 1.0 / (dh ** 0.5)
+        n_l = dcfg.n_layers
+        sk = s + kd                     # prefill keys + incremental writes
+        dev = self.device
+        bidx = torch.arange(b, device=dev)
+        x = dp.embed[tok_buf]                                # (B, S, d)
+        pos = torch.arange(s, device=dev)
+        angles = rope_angles(pos[None, :].expand(b, s), dh, dcfg.rope_theta)
+        causal = pos[None, :] <= pos[:, None]                # (S, S)
+        k_cache = torch.zeros((n_l, b, sk, hkv, dh), dtype=torch.float32,
+                              device=dev)
+        v_cache = torch.zeros_like(k_cache)
+        for i, blk in enumerate(dp.blocks):
+            h = rms_norm(x, blk.ln1)
+            q, k, v = _qkv(blk.attn, dcfg, h)
+            q = apply_rope(q, angles)
+            k = apply_rope(k, angles)
+            k_cache[i, :, :s] = k.float()
+            v_cache[i, :, :s] = v.float()
+            qf = q.reshape(b, s, hkv, g, dh).float() * scale
+            sc = torch.einsum("bqkgd,bskd->bkgqs", qf, k_cache[i, :, :s])
+            sc = sc.masked_fill(~causal, float("-inf"))
+            pr = torch.softmax(sc, dim=-1)
+            out = torch.einsum("bkgqs,bskd->bqkgd", pr,
+                               v_cache[i, :, :s]).to(x.dtype)
+            x = x + out.reshape(b, s, -1) @ blk.attn.wo
+            x = x + ffn_apply(blk.ffn, rms_norm(x, blk.ln2))
+        # rows past their ctx are garbage but unread: only the hidden state
+        # at ctx-1 leaves the prefill (clamped for empty padding rows)
+        hidden = rms_norm(x[bidx, (ctx - 1).clamp(min=0)], dp.final_norm)
+        greedy = torch.as_tensor(sampf[:, 0] <= 0.0, device=dev)
+        seed = torch.as_tensor(sampi[:, 1], device=dev)
+        d_toks, q_dists = [], []
+        for j in range(kd):
+            logits = hidden @ dp.lm_head                     # (B, V)
+            qd = kref.filtered_dist_ref(logits, sampf[:, 0], sampi[:, 0],
+                                        sampf[:, 1])
+            tok, _ = kref.gumbel_pick_ref(qd, kref.sample_key_ref(
+                seed, ctx + j, kref.STREAM_DRAFT, dev))
+            tok = torch.where(greedy, torch.argmax(logits, dim=-1), tok)
+            d_toks.append(tok)
+            q_dists.append(qd)
+            if j == kd - 1:
+                break
+            # incremental draft step: feed the proposal at position ctx+j
+            pj = ctx + j                                     # (B,)
+            xs = dp.embed[tok][:, None, :]
+            ang = rope_angles(pj[:, None], dh, dcfg.rope_theta)
+            kmask = torch.arange(sk, device=dev)[None, :] <= pj[:, None]
+            for i, blk in enumerate(dp.blocks):
+                h = rms_norm(xs, blk.ln1)
+                q, k, v = _qkv(blk.attn, dcfg, h)
+                q = apply_rope(q, ang)
+                k = apply_rope(k, ang)
+                k_cache[i, bidx, pj] = k[:, 0].float()
+                v_cache[i, bidx, pj] = v[:, 0].float()
+                qf = q[:, 0].reshape(b, hkv, g, dh).float() * scale
+                sc = torch.einsum("bkgd,bskd->bkgs", qf, k_cache[i])
+                sc = sc.masked_fill(~kmask[:, None, None, :], float("-inf"))
+                pr = torch.softmax(sc, dim=-1)
+                out = torch.einsum("bkgs,bskd->bkgd", pr,
+                                   v_cache[i]).to(xs.dtype)
+                xs = xs + out.reshape(b, 1, -1) @ blk.attn.wo
+                xs = xs + ffn_apply(blk.ffn, rms_norm(xs, blk.ln2))
+            hidden = rms_norm(xs[:, 0], dp.final_norm)
+        return torch.stack(d_toks, dim=1), torch.stack(q_dists, dim=1)
+
+    def _spec_verify(self, x_last, d_toks, ctx, nd, occ, rows, sampf, sampi,
+                     q_dists):
+        """Target verify: score every draft chain in ONE packed chunk call
+        and rejection-sample on device.
+
+        Lane layout: LV = max_batch * (spec_k + 1) lanes; lane i*(k+1)+j
+        holds row i's token j (j == 0 → x_last, the latest emitted token
+        whose K/V is not yet written; j >= 1 → d_toks[i, j-1]) at absolute
+        position ctx[i] - 1 + j.  Dead lanes (j > nd[i], or unoccupied
+        rows) get segment -1 and write nothing, exactly like packed
+        prefill padding; their positions may lie past the row's page run,
+        so the write targets are taken on the host for the live lanes only
+        (the reference gathers every lane's page index and relies on XLA
+        clamping it).  The j == 0 lane REWRITES position ctx-1 each round,
+        which restores cross-run page exactness after a restore-from-swap.
+
+        The target's K/V for accepted positions lands in the pages as a
+        side effect (lanes j = 0..nd at positions ctx-1..ctx+nd-1); the
+        correction/bonus token's K/V is NOT written — the next round's
+        x_last lane writes it, preserving the engine invariant that the
+        latest token's K/V is written by the step that consumes it.
+
+        x_last, ctx, nd, occ (B,) and rows (B, max_pages) are host arrays;
+        d_toks / q_dists stay on the device from :meth:`_draft_propose`.
+        Returns host (toks (B, k+1), n_emit (B,), lps (B, k+1)); n_emit is
+        zeroed for unoccupied rows."""
+        cfg = self.cfg
+        b = x_last.shape[0]
+        lanes_per = self.spec_k + 1
+        pgsz = self.page_size
+        lane_row, positions, seg_ids, seg_ctx = verify_lanes(
+            ctx, nd, occ, self.spec_k)
+        wr = np.flatnonzero(seg_ids >= 0)
+        wr_lanes = self._to_dev(wr)
+        wr_page = self._to_dev(rows[lane_row[wr], positions[wr] // pgsz]
+                               .astype(np.int64))
+        wr_slot = self._to_dev((positions[wr] % pgsz).astype(np.int64))
+        seg_ctx = self._to_dev(seg_ctx)
+        pos_d = self._to_dev(positions)
+        seg_d = self._to_dev(seg_ids)
+        rows_d = self._to_dev(rows)
+        toks = torch.cat([self._to_dev(x_last)[:, None], d_toks], dim=1)
+        x = self.params.embed[toks.reshape(-1)][None]        # (1, LV, d)
+        angles = rope_angles(pos_d[None], cfg.head_dim, cfg.rope_theta)
+
+        def write(i, k, v):
+            self.k_pages[i, wr_page, wr_slot] = k[0, wr_lanes]
+            self.v_pages[i, wr_page, wr_slot] = v[0, wr_lanes]
+
+        def attend(i, q):
+            return ops.packed_prefill_attention(
+                q[0], self.k_pages[i], self.v_pages[i], rows_d, seg_d,
+                pos_d, seg_ctx)
+
+        x = self._layers(x, angles, write, attend)
+        logits = self._logits(x[0])                           # (LV, V)
+        p_dists = kref.filtered_dist_ref(
+            logits, sampf[lane_row, 0], sampi[lane_row, 0],
+            sampf[lane_row, 1]).reshape(b, lanes_per, -1)
+        toks_o, n_emit, lps = ops.spec_verify_rows(
+            p_dists, q_dists, d_toks, nd, sampi[:, 1], ctx)
+        n_emit = torch.where(torch.as_tensor(occ, device=self.device),
+                             n_emit, torch.zeros_like(n_emit))
+        return (toks_o.cpu().numpy(), n_emit.cpu().numpy(),
+                lps.cpu().numpy())
+
     # ------------------------------------------------------------- engine
     def _fault_dispatch(self) -> None:
         """Chaos hook immediately before a device dispatch (the ``delay``
@@ -633,7 +914,8 @@ class _ShardEngine:
         return None
 
     def _fail_out(self, req: Request, status: str) -> None:
-        """Drop a request that will never run: give back its hit pins."""
+        """Drop a request that will never run: give back its hit pins
+        and any host arena slots its swapped K/V still occupies."""
         for pg in req._hit_pages:
             self.pool.unpin(pg)
         req._hit_pages = []
@@ -649,15 +931,28 @@ class _ShardEngine:
 
     def _release_swap(self, req: Request) -> None:
         """Discard the request's swap manifest (terminal paths and
-        migration-away).  The torch port has no host swap tier yet
-        (ROADMAP A.6), so there is never a manifest to discard."""
+        migration-away — the tokens themselves are the durable copy)."""
+        if self.swap_arena is not None:
+            self.swap_arena.release(req.req_id)
+        req._swap_tokens = 0
 
     def _admit(self):
         """Admission reserves pages and enqueues — it NEVER runs model work,
         so a 4k-token prompt cannot stall the decode batch here.  The prompt
         is ingested chunk-by-chunk by :meth:`_step_locked` under the
-        scheduler policy's token budget."""
-        while len(self._active) + len(self._prefilling) < self.max_batch:
+        scheduler policy's token budget.
+
+        With the ``swap`` eviction policy, a queue head that outranks the
+        lowest-priority active sequence may PREEMPT it — both for a batch
+        slot and for pages — spilling the victim's K/V to the host arena
+        (DESIGN.md §15)."""
+        while True:
+            if len(self._active) + len(self._prefilling) >= self.max_batch:
+                # batch full: a higher-priority head may still claim a slot
+                # by preempting the lowest-priority active sequence
+                if not self._preempt_for_slot():
+                    return
+                continue
             with self._wlock:
                 req = self.admission.pop(self._waiting)
             if req is None:
@@ -671,6 +966,15 @@ class _ShardEngine:
     def _admit_one(self, req: Request) -> bool:
         """Reserve this request's pages and enqueue it for prefill;
         False stops this step's admission wave (pool pressure)."""
+        resume = req.status == "swapped"
+        if resume and not req._hit_pages:
+            # restore prefix-cache hits FIRST: the replay prompt may have
+            # become (partly) cache-resident while the request was parked —
+            # any hit page supersedes the arena copy of the same positions.
+            # Skipped when a failed resume attempt already holds pins
+            # (re-looking-up would double-pin).
+            pages, n_tok = self.prefix_cache.lookup(req.prompt)
+            self._attach_hit(req, pages, n_tok)
         total = len(req.prompt) + req.max_new_tokens
         n_pages_needed = -(-total // self.page_size)
         pages = list(req._hit_pages)
@@ -680,9 +984,22 @@ class _ShardEngine:
             if pg is None:
                 break
             pages.append(pg)
+        if len(pages) < n_pages_needed and self.swap_enabled:
+            # eviction pressure cannot be met from finished sequences:
+            # preempt strictly-lower-priority ACTIVE sequences, reclaim
+            # their retired pages into our own context, retry once
+            if self._preempt_for_pages(req, n_pages_needed - len(pages)):
+                self.smr.help_reclaim()
+                for _ in range(n_pages_needed - len(pages)):
+                    pg = self.pool.try_alloc(req.req_id)
+                    if pg is None:
+                        break
+                    pages.append(pg)
         if len(pages) < n_pages_needed:
             # pool pressure: shed the eviction policy's quota for one
-            # event, help reclamation, requeue ahead of peers
+            # event, help reclamation, requeue ahead of peers (a swapped
+            # request keeps its hit pins and its arena manifest for the
+            # next attempt)
             for pg in pages[owned_from:]:
                 self.pool.release(pg)
             self.prefix_cache.pressure_evict()
@@ -694,9 +1011,177 @@ class _ShardEngine:
         for j, pg in enumerate(pages):
             page_ids[j] = pg.page_id
         seq = _Seq(req, pages, owned_from, page_ids)
+        if resume:
+            self._restore_swapped(req, seq)
+            if seq.filled == len(req.prompt) - 1:
+                # every position but the latest token's is back in its
+                # pages: the next decode step (or spec round) writes that
+                # one and samples exactly as the uninterrupted run's did,
+                # so the sequence skips prefill (nothing emitted this leg)
+                seq.filled = len(req.prompt)
+                seq.new_tokens = 0
+                req.status = "active"
+                self._active.append(seq)
+                return True
         req.status = "prefilling"
         self._prefilling.append(seq)
         return True
+
+    # ------------------------------------------------- preemption (swap)
+    def _lowest_victim(self, below: int) -> Optional[_Seq]:
+        """Lowest-priority active sequence STRICTLY below ``below`` —
+        ties broken youngest-first (largest req_id: the sequence that got
+        the least service loses).  Prefilling sequences are never victims
+        (nothing decoded yet; their admission is about to be re-litigated
+        anyway) and neither are cancelled ones (the reaper owns those)."""
+        best = None
+        best_key = None
+        for seq in self._active:
+            req = seq.req
+            if req.cancelled.is_set() or req.priority >= below:
+                continue
+            key = (req.priority, -req.req_id)
+            if best is None or key < best_key:
+                best, best_key = seq, key
+        return best
+
+    def _preempt_for_slot(self) -> bool:
+        """Batch full: preempt the lowest-priority active sequence iff the
+        waiting-queue head strictly outranks it."""
+        if not self.swap_enabled:
+            return False
+        with self._wlock:
+            head = self.admission.peek(self._waiting)
+        if head is None or head.cancelled.is_set():
+            return False
+        victim = self._lowest_victim(head.priority)
+        if victim is None:
+            return False
+        return self._preempt_seq(victim)
+
+    def _preempt_for_pages(self, req: Request, shortfall: int) -> bool:
+        """Preempt strictly-lower-priority active sequences until their
+        OWNED pages cover ``shortfall`` (all-or-nothing per victim: a
+        victim whose spill does not fit the arena stays resident)."""
+        freed = 0
+        any_preempted = False
+        while freed < shortfall:
+            victim = self._lowest_victim(req.priority)
+            if victim is None:
+                return any_preempted
+            owned = len(victim.pages) - victim.owned_from
+            if not self._preempt_seq(victim):
+                return any_preempted     # arena full: stop preempting
+            any_preempted = True
+            freed += owned
+        return True
+
+    def _pages_to_host(self, page_ids: np.ndarray):
+        """K and V of the given pages, all layers, as host arrays
+        ``(n, L, page, Hkv, D)`` in the arena's dtype: one gather each and
+        one synchronous device→host copy — when this returns the bytes are
+        on the host (bf16 as its 16-bit patterns)."""
+        idx = self._to_dev(page_ids.astype(np.int64))
+        out = []
+        for pool in (self.k_pages, self.v_pages):
+            t = pool[:, idx].transpose(0, 1).contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            a = t.cpu().numpy()
+            out.append(a.view(np.uint16) if a.dtype == np.int16 else a)
+        return out[0], out[1]
+
+    def _pages_from_host(self, page_ids: np.ndarray, k_np, v_np) -> None:
+        """Scatter host pages ``(n, L, page, Hkv, D)`` (as from
+        :meth:`_pages_to_host`) into the given device pages and wait until
+        the writes are done."""
+        idx = self._to_dev(page_ids.astype(np.int64))
+        for pool, a in ((self.k_pages, k_np), (self.v_pages, v_np)):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if pool.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            t = t.to(self.device)
+            if pool.dtype == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            pool[:, idx] = t.transpose(0, 1)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _preempt_seq(self, seq: _Seq) -> bool:
+        """Spill one active sequence to the host arena and park it.
+
+        ORDER (the mirror of migration's import-before-export): the
+        device→host copy completes — ``.cpu()`` blocks on the transfer —
+        and the manifest is recorded BEFORE ``_release_seq`` retires the
+        device pages through the SMR, so at no instant does neither tier
+        hold the K/V bytes.  Every page holding a written position spills,
+        the partly filled last one included (the reference spills only
+        full pages and re-ingests the tail by prefill chunks: here the
+        prefill and decode paths run different kernels, whose results
+        differ in the last bits, so a re-ingested tail would not replay
+        bit-exactly); on resume only the latest token's K/V is missing,
+        and the next decode step writes it as it would have.  False
+        (victim stays resident, nothing released) when the arena cannot
+        take the spill."""
+        req = seq.req
+        # positions 0..t-2 are in pages (the latest token's K/V is written
+        # by the NEXT step); spill every page they touch
+        written = len(seq.tokens) - 1
+        n_spill = -(-written // self.page_size)
+        if n_spill > 0:
+            t0 = time.perf_counter()
+            k_np, v_np = self._pages_to_host(seq.page_row[:n_spill])
+            self.swap_out_s += time.perf_counter() - t0
+            try:
+                # the arena counts whole pages; _swap_tokens the written
+                # positions among them
+                self.swap_arena.store(req.req_id, k_np, v_np,
+                                      n_spill * self.page_size)
+            except SwapArenaFullError:
+                return False
+        # bytes are safe in the arena (or recomputable): NOW retire the
+        # device claim through the normal SMR paths
+        self._active.remove(seq)
+        self._release_seq(seq)
+        req._hit_pages = []
+        req._hit_tokens = 0
+        req.fold_emitted()
+        req._swap_tokens = written
+        req.status = "swapped"
+        req._gap_pending = True     # next emit closes a service-gap interval
+        req.preemptions += 1
+        self.n_preemptions += 1
+        with self._wlock:
+            self.admission.push(self._waiting, req)
+        return True
+
+    def _restore_swapped(self, req: Request, seq: _Seq) -> None:
+        """Copy a resuming sequence's arena pages back into its freshly
+        allocated device pages and set its prefill cursor past the
+        restored positions.  Prefix-cache hits win: arena pages the hit
+        already covers are discarded; the device writes complete (a device
+        synchronise) BEFORE the slots are freed — the swap-in half of the
+        copy-before-free contract.  A checksum failure falls back to
+        recompute-from-tokens (the prompt is authoritative) instead of
+        decoding from corrupt KV."""
+        start = req._hit_tokens          # page-aligned (lookup guarantees)
+        man = self.swap_arena.manifest(req.req_id) \
+            if self.swap_arena is not None else None
+        if man is not None and req._swap_tokens > start:
+            from_page = start // self.page_size
+            try:
+                k_np, v_np = self.swap_arena.load(req.req_id, from_page)
+            except SwapChecksumError:
+                seq.filled = start       # recompute everything past the hit
+            else:
+                t0 = time.perf_counter()
+                self._pages_from_host(
+                    seq.page_row[from_page:from_page + k_np.shape[0]],
+                    k_np, v_np)
+                self.swap_in_s += time.perf_counter() - t0
+                seq.filled = req._swap_tokens
+        self._release_swap(req)
+        self.n_resumed += 1
 
     def _emit(self, seq: _Seq, tok: int, lp: float = 0.0) -> None:
         """Append one generated token and wake streamers."""
@@ -749,23 +1234,45 @@ class _ShardEngine:
             self._fault_dispatch()
             logits = self._paged_prefill(
                 buf, seq.page_row, seq.filled, n_valid,
-                emit=seq.filled + n_valid == n_prompt)
+                emit=seq.filled + n_valid == n_prompt and not self.spec_k)
             seq.filled += n_valid
             self.prefill_chunks += 1
             self.prefill_tokens_wasted += chunk - n_valid
         if seq.filled == n_prompt:
-            # final chunk: its last-position logits ARE the first token;
-            # intermediate chunks never sync with the device
-            tok, lp = ops.sample_tokens(logits,
-                                        [req.sampling.temperature])
-            self._finish_prefill(seq, int(tok.cpu()[0]), float(lp.cpu()[0]))
+            # final chunk: its last-position logits ARE the first token,
+            # sampled at absolute position len(prompt); intermediate chunks
+            # never sync with the device.  Speculative mode discards it
+            # (see _finish_prefill) and skips the draw
+            if self.spec_k:
+                self._finish_prefill(seq, 0)
+                return
+            sampf, sampi = self._operands([seq], 1)
+            tok, lp = self._sample(logits, sampf, sampi,
+                                   np.asarray([n_prompt]))
+            self._finish_prefill(seq, int(tok[0]), float(lp[0]))
 
     def _finish_prefill(self, seq: _Seq, tok: int, lp: float = 0.0) -> None:
         """A sequence's prompt is fully in pages and its first token is in
         hand: stream it and move the sequence to decoding (or straight to
-        done — a max_new_tokens=1 request must not overshoot to 2)."""
+        done — a max_new_tokens=1 request must not overshoot to 2).
+
+        In SPECULATIVE mode the chunk's token is DISCARDED and nothing is
+        emitted here: every token — including the first — comes out of a
+        spec round, so a freshly admitted request and a resumed one take
+        the exact same emission path (the first fresh position is drawn via
+        accept/residual streams either way, which is what keeps the accept
+        pattern replay-exact; DESIGN.md §17).  The sequence just activates
+        with ``new_tokens = 0``."""
         req = seq.req
         self._prefilling.remove(seq)
+        if self.spec_k > 0:
+            seq.new_tokens = 0
+            if req.cancelled.is_set():
+                self._finish(seq, "cancelled")
+            else:
+                req.status = "active"
+                self._active.append(seq)
+            return
         self._emit(seq, tok, lp)
         seq.new_tokens = 1
         if seq.new_tokens >= req.max_new_tokens \
@@ -818,7 +1325,9 @@ class _ShardEngine:
             rows = np.zeros((n_segs, self.max_pages), np.int32)
             ctxs = np.zeros((n_segs,), np.int32)
             emit = np.full((n_segs,), lanes_max, np.int32)  # not finishing
-            temps = np.zeros((n_segs,), np.float32)
+            # the absolute position each emitting segment samples AT (the
+            # counter-PRNG coordinate)
+            spos = np.zeros((n_segs,), np.int64)
             members = []
             lane = 0
             budget = len(riders) if first else 0
@@ -835,7 +1344,7 @@ class _ShardEngine:
                 slot[lane:lane + take] = pos % pgsz
                 rows[si] = seq.page_row
                 ctxs[si] = seq.filled + take
-                temps[si] = seq.req.sampling.temperature
+                spos[si] = seq.filled + take
                 if seq.filled + take == len(seq.req.prompt):
                     emit[si] = lane + take - 1
                 members.append((seq, take))
@@ -858,7 +1367,7 @@ class _ShardEngine:
                     slot[lane] = (ctx - 1) % pgsz
                     rows[si] = seq.page_row
                     ctxs[si] = ctx
-                    temps[si] = seq.req.sampling.temperature
+                    spos[si] = ctx
                     emit[si] = lane
                     n_riders += 1
                     lane += 1
@@ -885,15 +1394,20 @@ class _ShardEngine:
             # only a chunk that emits tokens (some prompt completed, or
             # decode riders aboard) syncs with the device
             out_np = lps_np = None
-            if finishing or n_riders:
-                out_toks, out_lps = ops.sample_tokens(logits, temps[:n_b])
-                out_np = out_toks.cpu().numpy()
-                lps_np = out_lps.cpu().numpy()
+            if (finishing and not self.spec_k) or n_riders:
+                sampf, sampi = self._operands(
+                    [seq for seq, _ in members] +
+                    (list(riders) if n_riders else []), n_b)
+                out_np, lps_np = self._sample(logits, sampf, sampi,
+                                              spos[:n_b])
             for si, (seq, take) in enumerate(members):
                 seq.filled += take
                 if emit[si] < lanes_max:
-                    self._finish_prefill(seq, int(out_np[si]),
-                                         float(lps_np[si]))
+                    if self.spec_k:     # the token is discarded anyway
+                        self._finish_prefill(seq, 0)
+                    else:
+                        self._finish_prefill(seq, int(out_np[si]),
+                                             float(lps_np[si]))
             if n_riders:
                 rider_toks = (
                     out_np[len(members):len(members) + n_riders],
@@ -909,13 +1423,11 @@ class _ShardEngine:
         ctx = np.ones((b,), np.int32)
         toks = np.zeros((b,), np.int64)
         occ = np.zeros((b,), bool)
-        temps = np.zeros((b,), np.float32)
         for i, seq in enumerate(batch_seqs):
             bt[i, :] = seq.page_row
             ctx[i] = len(seq.tokens)
             toks[i] = seq.tokens[-1]
             occ[i] = True
-            temps[i] = seq.req.sampling.temperature
         n = len(batch_seqs)
         pos = ctx[:n] - 1
         wr_page = bt[np.arange(n), pos // self.page_size].astype(np.int64)
@@ -925,8 +1437,76 @@ class _ShardEngine:
             self._to_dev(occ), self._to_dev(np.arange(n)),
             self._to_dev(wr_page),
             self._to_dev((pos % self.page_size).astype(np.int64)))
-        out_toks, out_lps = ops.sample_tokens(logits, temps)
-        return out_toks.cpu().numpy(), out_lps.cpu().numpy()
+        # the next token is sampled at absolute position ctx (ctx already
+        # counts the incoming token, so the sampled one sits at index ctx)
+        sampf, sampi = self._operands(batch_seqs, b)
+        return self._sample(logits, sampf, sampi, ctx)
+
+    def _spec_round(self) -> None:
+        """One speculative round for the whole active batch: the draft
+        proposes up to spec_k tokens per row, the target verifies every
+        chain in ONE packed chunk call with fused on-device rejection
+        sampling, and each row emits its accepted prefix plus the
+        correction/bonus token — always ≥ 1 token per row per round (two
+        dispatches, one sync).
+
+        Per-row draft depth ``nd = min(spec_k, remaining - 1, capacity -
+        ctx)``: the round never emits past ``max_new_tokens`` and never
+        writes K/V past the page run.  Both bounds are INVARIANT under
+        ``fold_emitted()`` (remaining = max_new - new_tokens and capacity
+        - ctx are conserved by the fold), so a resumed request sees the
+        same nd schedule — hence the same accept pattern and tokens — as
+        the uninterrupted run (DESIGN.md §17)."""
+        batch = list(self._active)
+        b = self.max_batch
+        kd = self.spec_k
+        ctx = np.ones((b,), np.int64)
+        nd = np.zeros((b,), np.int64)
+        occ = np.zeros((b,), bool)
+        rows = np.zeros((b, self.max_pages), np.int32)
+        x_last = np.zeros((b,), np.int64)
+        # the draft's token buffer: the longest stream rounded up to a page
+        s = -(-max(len(seq.tokens) for seq in batch) // self.page_size) * \
+            self.page_size
+        tok_buf = np.zeros((b, s), np.int64)
+        for i, seq in enumerate(batch):
+            t = len(seq.tokens)
+            tok_buf[i, :t] = seq.tokens
+            ctx[i] = t
+            remaining = seq.req.max_new_tokens - seq.new_tokens
+            capacity = len(seq.pages) * self.page_size
+            nd[i] = max(0, min(kd, remaining - 1, capacity - t))
+            occ[i] = True
+            rows[i] = seq.page_row
+            x_last[i] = seq.tokens[-1]
+        sampf, sampi = self._operands(batch, b)
+        self._fault_dispatch()
+        d_toks, q_dists = self._draft_propose(
+            self._to_dev(tok_buf), self._to_dev(ctx), sampf, sampi)
+        self._fault_dispatch()
+        # d_toks/q_dists stay on device between the two dispatches — the
+        # only host sync in the round is reading the verdict below
+        toks_np, n_np, lps_np = self._spec_verify(
+            x_last, d_toks, ctx, nd, occ, rows, sampf, sampi, q_dists)
+        self.n_spec_rounds += 1
+        done = []
+        for i, seq in enumerate(batch):
+            req = seq.req
+            self.n_draft_proposed += int(nd[i])
+            self.n_draft_accepted += int(n_np[i]) - 1
+            for j in range(int(n_np[i])):
+                if seq.new_tokens >= req.max_new_tokens \
+                        or req.cancelled.is_set() or req._stop_hit:
+                    break
+                self._emit(seq, int(toks_np[i, j]), float(lps_np[i, j]))
+                seq.new_tokens += 1
+            if seq.new_tokens >= req.max_new_tokens \
+                    or req.cancelled.is_set() or req._stop_hit:
+                done.append(seq)
+        for seq in done:
+            self._active.remove(seq)
+            self._finish(seq, "cancelled" if seq.req.cancelled.is_set()
+                         else "done")
 
     def _release_seq(self, seq: _Seq) -> None:
         for pg in seq.pages[seq.owned_from:]:
@@ -956,6 +1536,72 @@ class _ShardEngine:
         seq.req._progress.set()
         seq.req.done.set()
 
+    def warm_swap(self) -> None:
+        """Run the device↔host page movers once, so the FIRST preemption
+        doesn't pay their first-use cost (allocator growth, copy set-up)
+        inside a high-priority request's TTFT window.  Gathers page 0 and
+        scatters the identical bytes straight back — safe on a live
+        engine, serialised with steps by the step lock.  No-op unless the
+        swap tier is enabled."""
+        if not self.swap_enabled:
+            return
+        page = np.zeros((1,), np.int64)
+        with self._step_lock, torch.inference_mode():
+            k_np, v_np = self._pages_to_host(page)
+            self._pages_from_host(page, k_np, v_np)
+
+    def warm_packed(self) -> None:
+        """Launch every packed-prefill segment bucket (1, 2, 4, ...,
+        max_batch) once with an all-padding chunk: padding lanes write
+        nothing and the logits are discarded, so this only pays first-use
+        costs — safe on a live engine (serialised with steps by the step
+        lock).  No-op under a non-packing scheduler.  Latency-sensitive
+        deployments call this before opening the doors."""
+        if not getattr(self.scheduler, "packs", False):
+            return
+        lanes_max = self.config.prefill_chunk_tokens + self.max_batch
+        toks = self._to_dev(np.zeros((lanes_max,), np.int64))
+        segs = self._to_dev(np.full((lanes_max,), -1, np.int32))
+        poss = self._to_dev(np.zeros((lanes_max,), np.int32))
+        none = self._to_dev(np.zeros((0,), np.int64))
+        with self._step_lock, torch.inference_mode():
+            n_b = 1
+            while True:
+                self._paged_prefill_packed(
+                    toks, segs, poss,
+                    self._to_dev(np.zeros((n_b, self.max_pages), np.int32)),
+                    self._to_dev(np.zeros((n_b,), np.int32)),
+                    self._to_dev(np.zeros((n_b,), np.int64)),
+                    none, none, none)
+                if n_b >= self.max_batch:
+                    break
+                n_b = min(self.max_batch, n_b * 2)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def warm_spec(self) -> None:
+        """Run the speculative round's two dispatches (draft-propose +
+        verify) once with an all-padding batch so the first real round
+        doesn't pay their first-use cost inside a request's latency
+        window.  ``occ`` is all-False: every verify lane is dead, writes
+        nothing, and ``n_emit`` comes back zero — safe on a live engine
+        (step lock).  No-op unless speculative decoding is enabled."""
+        if not self.spec_k:
+            return
+        b = self.max_batch
+        sampf = np.zeros((b, 2), np.float32)
+        sampi = np.zeros((b, 2), np.int64)
+        ctx = np.ones((b,), np.int64)
+        zeros = np.zeros((b,), np.int64)
+        with self._step_lock, torch.inference_mode():
+            d_toks, q_dists = self._draft_propose(
+                self._to_dev(np.zeros((b, self.page_size), np.int64)),
+                self._to_dev(ctx), sampf, sampi)
+            self._spec_verify(zeros, d_toks, ctx, zeros,
+                              np.zeros((b,), bool),
+                              np.zeros((b, self.max_pages), np.int32),
+                              sampf, sampi, q_dists)
+
     def step(self) -> bool:
         """One engine iteration; returns False when idle."""
         with self._step_lock, torch.inference_mode():
@@ -984,8 +1630,12 @@ class _ShardEngine:
             if getattr(self.scheduler, "packs", False):
                 # packed path: the WHOLE plan rides one fixed-shape chunk,
                 # and the step's decode batch rides it too (fused step) —
-                # sequences activated DURING this call decode next step
-                batch_seqs = list(self._active)
+                # sequences activated DURING this call decode next step.
+                # Under SPECULATIVE decoding the active set never rides:
+                # every emission must come from the spec round's streams
+                # (accept/residual), not a schedule-dependent mix with
+                # plain TARGET draws (DESIGN.md §17)
+                batch_seqs = [] if self.spec_k else list(self._active)
                 decoded = self._advance_packed(plan, batch_seqs)
             else:
                 for seq, grant in plan:
@@ -996,8 +1646,13 @@ class _ShardEngine:
         # written.  When the fused packed chunk already produced this
         # step's decode tokens, consume those instead of a second call.
         if decoded is None and self._active:
-            batch_seqs = list(self._active)
-            decoded = self._decode_batch(batch_seqs)
+            if self.spec_k:
+                # speculative mode replaces the dedicated decode step
+                # entirely: one draft-propose + one verify per round
+                self._spec_round()
+            else:
+                batch_seqs = list(self._active)
+                decoded = self._decode_batch(batch_seqs)
         if decoded is not None:
             next_toks, next_lps = decoded
             done = []
@@ -1132,18 +1787,21 @@ class _ShardEngine:
             "completed": self.n_completed,
             "cancelled": self.n_cancelled,
             "failed": self.n_failed,
-            # the swap tier and speculative decoding are not ported yet
-            # (ROADMAP A.6, A.7): their counters stay 0
-            "preemptions": 0,
-            "resumed": 0,
+            "preemptions": self.n_preemptions,
+            "resumed": self.n_resumed,
             "slo_cancelled": self.n_slo_cancelled,
             "itl_slo_violations": self.n_itl_violations,
             "gap_intervals": self.n_gap_intervals,
             "gap_seconds": self.gap_seconds,
-            "draft_proposed": 0,
-            "draft_accepted": 0,
-            "accept_rate": 0.0,
-            "swap": None,
+            "draft_proposed": self.n_draft_proposed,
+            "draft_accepted": self.n_draft_accepted,
+            "accept_rate": (self.n_draft_accepted / self.n_draft_proposed
+                            if self.n_draft_proposed else 0.0),
+            "spec_rounds": self.n_spec_rounds,
+            "swap": (self.swap_arena.stats()
+                     if self.swap_arena is not None else None),
+            "swap_out_s": self.swap_out_s,
+            "swap_in_s": self.swap_in_s,
             "prefill_chunks": self.prefill_chunks,
             "prefill_tokens_wasted": self.prefill_tokens_wasted,
             "packed_chunks": self.packed_chunks,
@@ -1159,3 +1817,55 @@ class _ShardEngine:
             "migrated_in": self.n_migrated_in,
             "migrated_out": self.n_migrated_out,
         }
+
+
+class PagedServingEngine(_ShardEngine):
+    """One-release compatibility shim: the pre-session construction surface.
+
+    ``PagedServingEngine(model, params, smr=..., num_pages=..., ...)`` maps
+    the old kwargs onto a :class:`ServingConfig` (with a
+    ``DeprecationWarning``) and behaves as a single shard on ``device``
+    (``None`` = the card, as :func:`repro_torch.serving.serve`).  New code
+    builds a config and calls :func:`repro_torch.serving.serve`.
+    """
+
+    def __init__(self, model, params, *, smr="IBR",
+                 num_pages: int = 256, page_size: int = 8,
+                 max_batch: int = 4, max_seq_len: int = 256,
+                 prefix_cache_entries: int = 128,
+                 prefix_optimistic: Optional[bool] = None,
+                 prefix_traversal=None,
+                 config: Optional[ServingConfig] = None, device=None):
+        if config is not None:
+            super().__init__(model, params, config, device=device)
+            return
+        warnings.warn(
+            "PagedServingEngine(...) kwargs are deprecated; build a "
+            "repro_torch.serving.ServingConfig and open a session with "
+            "repro_torch.serving.serve(model, params, config)",
+            DeprecationWarning, stacklevel=2)
+        if prefix_optimistic is not None:
+            # thin shim for the pre-facade flag (one release)
+            if prefix_traversal is not None:
+                raise TypeError("PagedServingEngine: pass either "
+                                "prefix_traversal= or the deprecated "
+                                "prefix_optimistic= flag, not both")
+            warnings.warn("PagedServingEngine(prefix_optimistic=...) is "
+                          "deprecated; pass prefix_traversal='hm' for the "
+                          "Harris-Michael prefix-cache buckets",
+                          DeprecationWarning, stacklevel=2)
+            prefix_traversal = None if prefix_optimistic else "hm"
+        # an already-constructed scheme instance (shared with other
+        # subsystems) bypasses the config's name-based construction
+        shared = smr if isinstance(smr, SmrScheme) else None
+        is_name = isinstance(prefix_traversal, str) or \
+            prefix_traversal is None
+        cfg = ServingConfig(
+            smr=smr if isinstance(smr, str) else smr.name,
+            num_pages=num_pages, page_size=page_size, max_batch=max_batch,
+            max_seq_len=max_seq_len,
+            prefix_cache_entries=prefix_cache_entries,
+            prefix_traversal=prefix_traversal if is_name else None)
+        super().__init__(model, params, cfg, device=device, smr=shared,
+                         prefix_traversal=None if is_name
+                         else prefix_traversal)

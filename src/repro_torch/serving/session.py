@@ -335,6 +335,19 @@ class ServingSession:
     def start(self) -> None:
         self.engine.start()
 
+    def warm(self) -> None:
+        """Pay every first-use cost before traffic (the kernels are built
+        when the shards are made): launch each packed-prefill segment
+        bucket, one speculative propose/verify round's shapes (when
+        ``spec_k`` is on), and (when the swap tier is on) one page
+        gather/scatter on every shard, so none of it lands on a live
+        request's latency.  Each shard warms under its step lock; safe
+        before or after :meth:`start`."""
+        for shard in self.engine.shards:
+            shard.warm_packed()
+            shard.warm_spec()
+            shard.warm_swap()
+
     def close(self, drain: bool = True, timeout: float = 30.0) -> None:
         if self._closed:
             return
@@ -468,6 +481,7 @@ class ServingSession:
             # speculative decoding (DESIGN.md §17)
             "draft_proposed": sum(s["draft_proposed"] for s in shards),
             "draft_accepted": sum(s["draft_accepted"] for s in shards),
+            "spec_rounds": sum(s["spec_rounds"] for s in shards),
             "swapped_out": sum(s["swap"]["swapped_out"] for s in shards
                                if s["swap"] is not None),
             "swapped_in": sum(s["swap"]["swapped_in"] for s in shards

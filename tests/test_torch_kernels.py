@@ -145,15 +145,11 @@ def test_sample_tokens_greedy_rows_match_jax(temps):
         jnp.asarray(logits), jnp.asarray(temps, jnp.float32),
         jnp.zeros((b,), jnp.int32), jnp.ones((b,), jnp.float32),
         jnp.zeros((b,), jnp.int32), jnp.zeros((b,), jnp.int32))
-    ttoks, tlps = ops.sample_tokens(torch.from_numpy(logits), temps)
+    ttoks, tlps = ops.sample_tokens(torch.from_numpy(logits), temps,
+                                    [0] * b, [1.0] * b, [0] * b, [0] * b)
     assert ttoks.tolist() == np.asarray(toks).tolist()
     assert ttoks[0].item() == 7
     assert np.all(tlps.numpy() == 0.0) and np.all(np.asarray(lps) == 0.0)
-
-
-def test_sample_tokens_refuses_temperature():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ops.sample_tokens(torch.zeros((2, 8)), [0.0, 0.7])
 
 
 def test_default_num_splits_for_132_sms():

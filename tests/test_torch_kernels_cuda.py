@@ -26,8 +26,16 @@ a count above it refused; SSD at N 64 and 128,
 S from 1 to 2048, with and without ``d_skip``, one and two groups, the
 final state checked beside y.
 
-The input builders are shared with ``tests/test_torch_kernels.py``, which
-holds the plain versions against the JAX package on the CPU."""
+The packed kernel is also held at the speculative verify chunk's lane
+layout (``serving.engine.verify_lanes``: max_batch x (spec_k + 1) lanes,
+dead lanes interleaved between segments, some of their positions past the
+row's page run), in both variants; dead lanes must come out exactly 0.
+The sampler (plain tensor math, no kernel) is held on the card against
+its CPU run: PRNG keys and bits bit-equal, tokens equal.
+
+The input builders are shared with ``tests/test_torch_kernels.py`` and
+``tests/test_torch_spec_swap.py``, which hold the plain versions against
+the JAX package on the CPU."""
 
 import itertools
 
@@ -39,7 +47,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_prefill as tpp
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tss
+from repro_torch.serving.engine import verify_lanes
 
 TOLS = {"float32": dict(rtol=3e-5, atol=3e-5),
         "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -115,6 +125,32 @@ def _packed_inputs(seed, shared_page=False, c=16):
                      [0] * pad, np.int32)
     ctx = np.asarray([page + n for n in lens], np.int32)
     return [q, kp, vp, rows, seg, pos, ctx]
+
+
+# the verify chunk: 8 rows of spec_k + 1 = 5 lanes; draft depths nd mixed
+# in 0..4, row 6 unoccupied, row 7 at the end of its 1024-key page run (its
+# dead lanes sit at positions 1023..1025, past the run)
+VERIFY_CTX = (64, 1000, 130, 377, 200, 640, 1, 1022)
+VERIFY_ND = (4, 0, 3, 1, 4, 2, 0, 1)
+
+
+def _verify_chunk(h, hkv, d, seed, page=8, npg=128, spec_k=4):
+    """Packed-kernel inputs at the verify layout, numpy: [q, k_pages,
+    v_pages, page_rows, seg_ids, positions, seg_ctx]."""
+    rng = np.random.RandomState(seed)
+    b = len(VERIFY_CTX)
+    occ = np.ones((b,), bool)
+    occ[6] = False
+    _, pos, seg, seg_ctx = verify_lanes(np.asarray(VERIFY_CTX),
+                                        np.asarray(VERIFY_ND), occ, spec_k)
+    n_phys = b * npg + 64
+    rows = rng.permutation(n_phys)[:b * npg].reshape(b, npg).astype(
+        np.int32)
+    c = len(seg)
+    return [rng.standard_normal((c, h, d)).astype(np.float32),
+            rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32),
+            rng.standard_normal((n_phys, page, hkv, d)).astype(np.float32),
+            rows, seg, pos, seg_ctx]
 
 
 def _flash_inputs(shape, seed):
@@ -603,3 +639,69 @@ def test_paged_and_ssd_variants_follow_dtype_and_shape(cuda_device):
         ops.ssd(*t[:5], chunk=chunk)
         assert tss.launches.of(want) == before + 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,want", [("float32", 64, "fma"),
+                                          ("bfloat16", 64, "wgmma"),
+                                          ("bfloat16", 128, "wgmma")])
+def test_packed_kernel_at_the_verify_layout(cuda_device, dtype, d, want):
+    """The spec verify chunk (40 lanes, dead lanes between segments, a
+    row's dead lanes past its page run): live lanes match the plain
+    version, dead lanes are exactly 0, and the variant is the one the
+    engine's bf16 / fp32 path runs."""
+    arrays = _verify_chunk(32 if d == 64 else 16, 4 if d == 64 else 2, d,
+                           seed=40)
+    t = _on(arrays, dtype, cuda_device)
+    before = tpp.launches.of(want)
+    out = ops.packed_prefill_attention(*t)
+    torch.cuda.synchronize()
+    assert tpp.launches.of(want) == before + 1, f"not the {want} variant"
+    out = _np(out)
+    assert np.all(np.isfinite(out))
+    assert np.all(out[arrays[4] < 0] == 0.0), "dead lanes leaked output"
+    np.testing.assert_allclose(out, _np(tpp.packed_prefill_plain(*t)),
+                               **TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_sampler_keys_and_bits_on_the_card_equal_the_cpu(cuda_device):
+    seeds = torch.tensor([0, 1, 2**31 - 1, 2**32 - 1])
+    pos = torch.tensor([0, 1, 7, 1023, 2**20])
+    grid = [t.reshape(-1) for t in torch.meshgrid(
+        seeds, pos, torch.arange(4), indexing="ij")]
+    cpu = tref.sample_key_ref(*grid)
+    card = tref.sample_key_ref(*[t.to(cuda_device) for t in grid],
+                               device=cuda_device)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(tref.random_bits(cpu, 32000),
+                       tref.random_bits(card, 32000).cpu())
+    assert torch.equal(tref.uniform(cpu), tref.uniform(card).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,top_p", [(50, 1.0), (0, 0.9), (50, 0.9)])
+def test_sampler_tokens_on_the_card_equal_the_cpu(cuda_device, top_k,
+                                                  top_p):
+    """Tokens of ``sample_tokens`` at (8, 32000), temperature 0.8, equal on
+    the card and on the CPU (the float draws may differ in the last bit of
+    ``log``; a flip is allowed only where the CPU's top two perturbed
+    scores lie within 1e-3)."""
+    g = torch.Generator().manual_seed(11)
+    logits = torch.randn((8, 32000), generator=g) * 3
+    ops_args = ([0.8] * 8, [top_k] * 8, [top_p] * 8, list(range(8)),
+                [5, 99, 1023, 2**20, 0, 1, 7, 300])
+    cpu_toks, cpu_lps = ops.sample_tokens(logits, *ops_args)
+    card_toks, card_lps = ops.sample_tokens(logits.to(cuda_device),
+                                            *ops_args)
+    dist = tref.filtered_dist_ref(logits, *ops_args[:3])
+    score = torch.log(torch.clamp(dist, min=1e-30)) + tref.gumbel(
+        tref.sample_key_ref(torch.tensor(ops_args[3]),
+                            torch.tensor(ops_args[4]), 0), 32000)
+    top2 = torch.topk(score, 2).values
+    same = card_toks.cpu() == cpu_toks
+    for i in np.flatnonzero(~same.numpy()):
+        assert float(top2[i, 0] - top2[i, 1]) < 1e-3, i
+    np.testing.assert_allclose(card_lps.cpu()[same].numpy(),
+                               cpu_lps[same].numpy(), rtol=0, atol=1e-5)

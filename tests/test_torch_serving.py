@@ -197,31 +197,24 @@ def test_padding_rows_and_lanes_never_write_a_page(models):
 
 
 def test_config_refuses_unported_paths():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        serving.ServingConfig(spec_k=2)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        serving.ServingConfig(eviction="swap", swap_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        serving.ServingConfig(swap_bytes=1 << 20)
+    """The config validates as the JAX package's does (a swap policy
+    without a host budget, a negative ``spec_k``, an unknown draft); the
+    only field it refuses outright is ``backend`` (dispatch is by
+    device)."""
+    with pytest.raises(ValueError, match="host arena"):
+        serving.ServingConfig(eviction="swap")
+    with pytest.raises(ValueError, match="spec_k"):
+        serving.ServingConfig(spec_k=-1)
+    with pytest.raises(ValueError, match="spec_draft"):
+        serving.ServingConfig(spec_k=2, spec_draft="trained")
+    with pytest.raises(ValueError, match="spec_draft_layers"):
+        serving.ServingConfig(spec_k=2, spec_draft_layers=-2)
     with pytest.raises(TypeError):
         serving.ServingConfig(backend="xla")     # dispatch is by device
-    assert "backend" not in serving.ServingConfig().summary()
-
-
-def test_sampling_with_temperature_is_refused(models):
-    _, _, model, tp = models
-    session = serving.serve(model, tp, serving.ServingConfig(**CONFIG),
-                            device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="A.5"):
-            session.submit([1, 2, 3], sampling=serving.TemperatureSampling(
-                temperature=0.8))
-        # greedy policies by name still serve
-        out = session.submit([1, 2, 3], max_new_tokens=2,
-                             sampling="greedy").result(timeout=60)
-        assert len(out) == 2
-    finally:
-        session.close()
+    summary = serving.ServingConfig(spec_k=4, eviction="swap",
+                                    swap_bytes=1 << 20).summary()
+    assert summary["spec_k"] == 4 and summary["swap_bytes"] == 1 << 20
+    assert "backend" not in summary
 
 
 def test_serve_defaults_to_the_card(models, monkeypatch):
