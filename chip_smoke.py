@@ -37,7 +37,8 @@ Phases, in order; each prints one line and any failure exits non-zero:
    step;
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
-   as Zamba2 and Hkv = 4 as TinyLlama, D = 64), fp32 and bf16, with
+   as Zamba2 and Hkv = 4 as TinyLlama, D = 64), and at DeepSeek-V2's MLA
+   prefill (B = 2, S = 1024, H = Hkv = 128, D = 192), fp32 and bf16, with
    kernel, plain, library (one causal GQA ``scaled_dot_product_attention``
    call) and bound times, the variant and the profiler's device time, as
    in phase 4;
@@ -77,22 +78,55 @@ Phases, in order; each prints one line and any failure exits non-zero:
    same sampler keyed by absolute position; ``spec_k=4`` greedy tokens
    equal plain greedy (both with a near-tie exception, top-2 gap < 1e-3);
    a spec-sampled run gives identical tokens in a fresh session; every
-   packed launch is a prefill or verify layer of the ``fma`` variant and
-   no paged launch runs; the accept rate and verify launches are printed,
-   and whether the verify chunk's x_last lane rewrites position ctx-1
-   with the decode step's bytes.  In bf16, ``spec_k=4`` greedy under
-   ``packed``: every request completes and every verify launch is the
-   ``wgmma`` variant; agreement with plain bf16 greedy is printed;
+   packed launch is a prefill layer and every paged launch a verify layer
+   (the verify lanes run as paged rows), all of the ``fma`` variant; the
+   accept rate and verify launches are printed, and the first op whose
+   bytes differ between the verify chunk's x_last lane and the decode
+   step at the same position.  In bf16, ``spec_k=4`` greedy under
+   ``chunked`` and ``packed``: every request completes, the verify
+   launches are paged ``mma`` and the prefill launches packed ``wgmma``;
+   each stream's first divergence from plain bf16 greedy (``chunked``:
+   every generated position in the decode step) is printed with its
+   margin in bf16 ulps, as is plain greedy under ``packed`` (its rows
+   ride prefill chunks), with the first differing op at the first
+   diverging spec stream's position; then every spec stream is held by
+   ``held()`` (exact, or a first divergence at a top-2 margin < 1e-3,
+   PERF.md section 2);
 13. the swap tier in bf16: four low-priority requests fill the batch and a
    132-page pool, two high-priority arrivals preempt them mid-decode into
    the host arena; every stream equals its uncontended run token for
    token, preemptions >= 1 and resumed == preemptions, and after close no
    arena slot is used and the pool is whole; the page moves' host seconds
    are printed;
-14. the kernel table as one JSON line (each row with the variant of the
-   main path; the packed row's launches count the verify chunks of phase
-   12), the card line, and the result line ``{"ok": true, "device":
-   {...}}`` last.
+13b. the same with ``spec_k=4`` (the uncontended runs with ``spec_k=4``
+   too, all six together on the large pool), every stream held to its
+   uncontended run by ``held()`` (exact, or a first divergence at a
+   top-2 margin < 1e-3);
+13c. live migration in bf16: two shards, each with a greedy and a seeded
+   ``TemperatureSampling(0.8)`` request (200 prompt tokens, 64 new);
+   shard 0 stalls mid-decode and the watchdog migrates its two requests
+   to shard 1, carrying their pages; every stream held to its
+   uninterrupted run by ``held()``; both pools whole after close;
+14a. OLMoE-1B-7B (16 layers) and DeepSeek-V2 (published widths, 3 of 60
+   layers: the dense first layer and two MoE layers) in fp32 at capacity
+   factor E / k (no token dropped): ``logits_fn`` over 2 prompts of 256
+   tokens held against ``decode_step`` at every position, then 16 greedy
+   tokens against the forward (rtol = atol = 2e-3); every flash launch
+   the ``fma`` variant, 16 and 3 per forward;
+14b. both in bf16 at capacity factor 1.25: prefill of 4 (OLMoE) and 2
+   (DeepSeek-V2) prompts of 1024 tokens and 32 decode steps, timed;
+   finite logits; every flash launch ``wgmma`` (D 128 and 192); the
+   prefill's logits against the fp32 forward on the same weights within
+   ``LOGITS_RATIO`` times the distance of the same bf16 forward with
+   attention on the flash kernel's plain version;
+15. the kernel table as one JSON line (each row with the variant of the
+   main path; the paged row's launches count the verify chunks of phases
+   12 and 13b, the flash row's those of phases 14a and 14b), the card
+   line, and the result line ``{"ok": true, "device": {...}}`` last.
+
+``--only 7,13c`` runs just those phases, for iterating on a few: it
+prints no kernel table and no result line.  With no argument every phase
+runs.
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on the tensor cores, 67 TFLOP/s fp32 outside them.  It imports
@@ -104,6 +138,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -786,6 +821,62 @@ def held(label, outs, refs, limit=1e-3):
     return "; ".join(notes) or "all tokens identical"
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def forced_margins(torch, model, params, prompt, tokens, policy=None):
+    """Margins along a recorded stream: ``logits_fn`` over prompt +
+    tokens[:-1] (teacher-forced, one pass) and, at the position that
+    picked each token, the gap between the top two scores the pick
+    compares (greedy: logits; sampled: gumbel-perturbed log-probs of the
+    filtered distribution, keyed by absolute position, as the engine
+    draws).  Returns (margins, top logit at each pick)."""
+    from repro_torch.kernels import ref as kref
+    seq = list(prompt) + list(tokens[:-1])
+    with torch.inference_mode():
+        logits, _ = model.logits_fn(params, {"tokens": torch.tensor(
+            [seq], device=DEVICE)})
+        rows = logits[0, len(prompt) - 1:].float()        # (n, V)
+        top = rows.max(-1).values
+        if policy is None:
+            score = rows
+        else:
+            t_f, k_i, p_f, seed = policy.operands()
+            n = rows.shape[0]
+            dist = kref.filtered_dist_ref(rows, [t_f] * n, [k_i] * n,
+                                          [p_f] * n)
+            pos = torch.arange(len(prompt), len(prompt) + n, device=DEVICE)
+            key = kref.sample_key_ref(torch.full((n,), seed, device=DEVICE),
+                                      pos, 0, DEVICE)
+            score = torch.log(torch.clamp(dist, min=1e-30)) + kref.gumbel(
+                key, dist.shape[-1])
+        top2 = torch.topk(score, 2, dim=-1).values
+    return ((top2[:, 0] - top2[:, 1]).cpu().tolist(), top.cpu().tolist())
+
+
+def first_divergences(outs, refs, tops):
+    """Per stream: None where it equals its reference, else (token index,
+    token, reference token, reference margin there, that margin in bf16
+    ulps of the reference's top logit)."""
+    rows = []
+    for out, (want, margins), top in zip(outs, refs, tops):
+        j = next((j for j, (a, b) in enumerate(zip(out, want)) if a != b),
+                 None)
+        rows.append(None if j is None else (
+            j, out[j], want[j], margins[j], margins[j] / bf16_ulp(top[j])))
+    return rows
+
+
+def divergence_notes(rows):
+    return "; ".join(
+        f"req {i}: identical" if r is None else
+        f"req {i}: first differs at token {r[0]} ({r[1]} vs {r[2]}), "
+        f"margin {r[3]:.4g} = {r[4]:.2f} bf16 ulps of the top logit"
+        for i, r in enumerate(rows))
+
+
 def serve_run(torch, model, params, prompts, n_new, sampling=None,
               warm=False, **config):
     """One session: submit every prompt at once, wait, close.  Returns
@@ -817,41 +908,78 @@ def launch_counts():
             "paged_by_variant": dict(paged_attention.launches.by_variant)}
 
 
-def check_verify_launches(label, cfg, totals, counts, variant):
+def check_verify_launches(label, cfg, totals, counts, variants):
     """Spec mode replaces the decode step: every packed launch is one
-    layer of a prefill chunk or of a verify chunk, all ``variant``; no
-    paged launch.  Returns the verify launches."""
+    layer of a prefill chunk, every paged launch one layer of a verify
+    chunk (its lanes run as paged rows), of the variants ``variants``
+    (paged, packed).  Returns the verify launches."""
     n_l = cfg.n_layers
     rounds, chunks = totals["spec_rounds"], totals["prefill_chunks"]
-    total = counts["packed_prefill_attention"]
-    if rounds < 1 or total != n_l * (chunks + rounds) or \
-            counts["packed_by_variant"].get(variant, 0) != total or \
-            counts["paged_attention"]:
+    paged, packed = counts["paged_attention"], \
+        counts["packed_prefill_attention"]
+    if rounds < 1 or paged != n_l * rounds or packed != n_l * chunks or \
+            counts["paged_by_variant"].get(variants[0], 0) != paged or \
+            counts["packed_by_variant"].get(variants[1], 0) != packed:
         raise AssertionError(
-            f"{label}: packed launches {counts['packed_by_variant']} for "
-            f"{chunks} prefill chunks and {rounds} verify rounds (want "
-            f"{n_l} per chunk, all {variant}), paged "
-            f"{counts['paged_attention']} (want 0)")
+            f"{label}: paged launches {counts['paged_by_variant']} for "
+            f"{rounds} verify rounds, packed {counts['packed_by_variant']} "
+            f"for {chunks} prefill chunks (want {n_l} per round and per "
+            f"chunk, of the {variants} variants)")
     return n_l * rounds
 
 
-def xlast_rewrite(torch, model, params, prompt):
-    """The verify chunk's x_last lane rewrites position ctx-1 each round.
-    Against what the decode step writes there for the same token (a
-    (B, 1, d) product through the paged kernel, where the verify lane is a
-    (1, LV, d) product through the packed kernel): are the K/V bytes of
-    that slot equal in every layer?  Returns (equal, max |K diff|,
-    max |V diff|)."""
+LANE_OPS = ("x", "rms_norm", "q_proj", "k_proj", "v_proj", "attention",
+            "o_proj", "ffn")
+
+
+def traced_layers(shard, rec):
+    """A copy of the shard's ``_layers`` loop, op for op, that records row
+    0, lane 0 of every op's output in every layer into ``rec``: the
+    decode step's row 0 and the verify chunk's lane 0 (row 0's x_last)."""
+    from repro_torch.serving import engine as eng
+
+    def layers(x, angles, write, attend):
+        b, s, _ = x.shape
+        for i, blk in enumerate(shard.params.blocks):
+            h = eng.rms_norm(x, blk.ln1)
+            q, k, v = eng._qkv(blk.attn, shard.cfg, h)
+            step = {"x": x, "rms_norm": h, "q_proj": q, "k_proj": k,
+                    "v_proj": v}
+            q = eng.apply_rope(q, angles)
+            k = eng.apply_rope(k, angles)
+            write(i, k, v)
+            out = attend(i, q).reshape(b, s, -1)
+            o = out @ blk.attn.wo
+            x = x + o
+            f = eng.ffn_apply(blk.ffn, eng.rms_norm(x, blk.ln2))
+            x = x + f
+            step.update(attention=out, o_proj=o, ffn=f)
+            rec.append({n: t[0, 0].clone() for n, t in step.items()})
+        return x
+    return layers
+
+
+def lane_vs_decode(torch, model, params, prompt, conf):
+    """The verify chunk's x_last lane against the decode step at the same
+    position, token and pages.  After the prompt's prefill (which emits
+    a greedy row's first token), the decode step (a (max_batch, 1, d)
+    product per weight, paged kernel) writes position ctx-1; then one
+    spec round's lane 0 (a (1, max_batch * (spec_k + 1), d) product, the
+    lane a paged row) rewrites it.  Both run
+    through :func:`traced_layers`.  Returns (K/V bytes of that slot equal
+    in every layer, max |dK|, max |dV|, the first op in program order
+    whose output bytes differ as (layer, op, max |diff|, max |value|), or
+    None)."""
     from repro_torch import serving
     session = serving.serve(model, params, serving.ServingConfig(
-        spec_k=4, num_pages=256, max_batch=4, max_seq_len=512,
-        prefill_chunk_tokens=128), device=DEVICE, start=False)
+        spec_k=4, **conf), device=DEVICE, start=False)
     shard = session.engine.shards[0]
+    dec, ver = [], []
     try:
         session.submit(prompt, max_new_tokens=8)
         with torch.inference_mode():
             while not shard._active:
-                shard.step()                 # prefill; spec mode emits none
+                shard.step()                 # prefill
             seq = shard._active[0]
             pos = len(seq.tokens) - 1
             page = int(seq.page_row[pos // shard.page_size])
@@ -860,15 +988,38 @@ def xlast_rewrite(torch, model, params, prompt):
             def kv():
                 return (shard.k_pages[:, page, slot].clone(),
                         shard.v_pages[:, page, slot].clone())
+            shard._layers = traced_layers(shard, dec)
             shard._decode_batch([seq])       # the decode step's write
             dk, dv = kv()
+            shard._layers = traced_layers(shard, ver)
             shard.step()                     # one round: lane 0 rewrites
             vk, vv = kv()
     finally:
         session.close()
+    first = None
+    for i, (a, b) in enumerate(zip(dec, ver)):
+        for name in LANE_OPS:
+            if not torch.equal(a[name], b[name]):
+                first = (i, name,
+                         float((a[name].float() - b[name].float()).abs()
+                               .max()),
+                         float(a[name].float().abs().max()))
+                break
+        if first:
+            break
     return (bool(torch.equal(dk, vk) and torch.equal(dv, vv)),
             float((dk.float() - vk.float()).abs().max()),
-            float((dv.float() - vv.float()).abs().max()))
+            float((dv.float() - vv.float()).abs().max()), first)
+
+
+def lane_note(diag):
+    eq, dk, dv, first = diag
+    where = "none: every op's bytes are equal" if first is None else (
+        f"layer {first[0]} {first[1]} (max |diff| {first[2]:.3g}, max "
+        f"|value| {first[3]:.3g})")
+    return (f"x_last lane vs decode step at ctx-1: K/V bytes "
+            f"{'equal' if eq else 'differ'} (max |dK| {dk:.3g}, |dV| "
+            f"{dv:.3g}); first op whose bytes differ: {where}")
 
 
 def serve_spec_fp32(torch):
@@ -910,13 +1061,13 @@ def serve_spec_fp32(torch):
                                      warm=True, spec_k=4, **conf)
     add(counts)
     n_verify = check_verify_launches("spec greedy fp32", cfg, totals, counts,
-                                     "fma")
+                                     ("fma", "fma"))
     lines.append(f"spec_k 4 greedy: 4/4 requests match plain greedy "
                  f"({held('spec greedy', outs, refs_g)}); accept rate "
                  f"{totals['accept_rate']:.3f} ({totals['draft_accepted']}/"
                  f"{totals['draft_proposed']}); {totals['spec_rounds']} "
                  f"rounds, verify launches {n_verify} "
-                 f"(packed by variant {counts['packed_by_variant']})")
+                 f"(paged by variant {counts['paged_by_variant']})")
     spol = serving.TemperatureSampling(temperature=0.8, seed=7)
     runs = []
     for _ in range(2):
@@ -925,28 +1076,35 @@ def serve_spec_fp32(torch):
                                          scheduler="packed", **conf)
         add(counts)
         check_verify_launches("spec sampled fp32", cfg, totals, counts,
-                              "fma")
+                              ("fma", "fma"))
         runs.append((outs, totals["accept_rate"]))
     if runs[0][0] != runs[1][0] or any(len(o) != n_new for o in runs[0][0]):
         raise AssertionError("spec sampled: a fresh session gave other "
                              "tokens")
     lines.append(f"spec_k 4 sampled T 0.8 packed: identical in two fresh "
                  f"sessions, accept rate {runs[0][1]:.3f}")
-    eq, dk, dv = xlast_rewrite(torch, model, params, prompts[1])
-    lines.append(f"x_last rewrite of position ctx-1 (verify lane vs decode "
-                 f"step): bytes {'equal' if eq else 'differ'} (max |dK| "
-                 f"{dk:.3g}, |dV| {dv:.3g})")
+    lines.append(lane_note(lane_vs_decode(torch, model, params, prompts[1],
+                                          conf)))
     del params
     torch.cuda.empty_cache()
     return lines, launches
 
 
 def serve_spec_bf16(torch):
-    """Phase 12, bf16: speculative greedy decoding through the wgmma verify
-    chunk; every request completes, every verify launch is the wgmma
-    variant.  Agreement with plain bf16 greedy is reported, not held:
-    two bf16 kernels round differently, and random weights leave many
-    near-ties at bf16's resolution."""
+    """Phase 12, bf16: speculative greedy decoding under ``chunked`` and
+    ``packed``, the verify chunk's lanes as paged ``mma`` rows; every
+    request completes.  The reference is plain bf16 greedy under
+    ``chunked``, which computes every generated position in the decode
+    step.  Each spec stream is held to it by :func:`held`: equal, or a
+    first divergence where plain's top-two margin (one teacher-forced
+    ``logits_fn`` pass over prompt + plain tokens) is below section 2's
+    1e-3.  Before the hold each first divergence is printed with its
+    margin in bf16 ulps of the top logit; so is plain greedy under
+    ``packed``, whose rows ride prefill chunks through the packed kernel
+    while prompts are still being ingested (spec rows never ride), and
+    :func:`lane_vs_decode` at the first diverging spec stream's position
+    names the first op whose bytes differ between the verify lane and the
+    decode step."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -958,41 +1116,89 @@ def serve_spec_bf16(torch):
                for n in rng.randint(64, 257, size=8)]
     n_new = 32
     conf = dict(num_pages=2048, max_batch=8, max_seq_len=512,
-                prefill_chunk_tokens=256, scheduler="packed")
-    t0 = time.perf_counter()
-    outs, totals, counts = serve_run(torch, model, params, prompts, n_new,
-                                     warm=True, spec_k=4, **conf)
-    wall = time.perf_counter() - t0
-    if any(len(o) != n_new for o in outs):
-        raise AssertionError("spec bf16: a request came back short")
-    n_verify = check_verify_launches("spec greedy bf16", cfg, totals, counts,
-                                     "wgmma")
-    plain, _, _ = serve_run(torch, model, params, prompts, n_new, **conf)
-    same = sum(a == b for o, p in zip(outs, plain) for a, b in zip(o, p))
-    eq, dk, dv = xlast_rewrite(torch, model, params, prompts[0])
+                prefill_chunk_tokens=256)
+    plain, _, _ = serve_run(torch, model, params, prompts, n_new,
+                            scheduler="chunked", **conf)
+    forced = [forced_margins(torch, model, params, p, t)
+              for p, t in zip(prompts, plain)]
+    refs = [(t, m) for t, (m, _) in zip(plain, forced)]
+    tops = [top for _, top in forced]
+    runs, lines, launches = {}, [], {}
+    for sched in ("chunked", "packed"):
+        t0 = time.perf_counter()
+        outs, totals, counts = serve_run(torch, model, params, prompts,
+                                         n_new, warm=True, spec_k=4,
+                                         scheduler=sched, **conf)
+        wall = time.perf_counter() - t0
+        if any(len(o) != n_new for o in outs):
+            raise AssertionError(f"spec bf16 {sched}: a request came back "
+                                 f"short")
+        n_verify = check_verify_launches(f"spec greedy bf16 {sched}", cfg,
+                                         totals, counts, ("mma", "wgmma"))
+        for name in ("paged_attention", "packed_prefill_attention"):
+            launches[name] = launches.get(name, 0) + counts[name]
+        rows = first_divergences(outs, refs, tops)
+        runs[sched] = (outs, rows)
+        same = sum(a == b for o, q in zip(outs, plain)
+                   for a, b in zip(o, q))
+        say(f"[12 spec bf16] spec {sched} against plain bf16 greedy "
+            f"(chunked; margins from one teacher-forced logits_fn pass): "
+            f"{divergence_notes(rows)}")
+        lines.append(
+            f"{sched}: 8/8 requests complete in {wall:.2f} s, accept rate "
+            f"{totals['accept_rate']:.3f}, {totals['spec_rounds']} rounds, "
+            f"verify launches {n_verify} all paged mma (paged by variant "
+            f"{counts['paged_by_variant']}); tokens equal to plain bf16 "
+            f"greedy {same}/{8 * n_new}, "
+            f"{sum(r is None for r in rows)}/8 streams identical")
+    riders, _, _ = serve_run(torch, model, params, prompts, n_new,
+                             scheduler="packed", **conf)
+    say(f"[12 spec bf16] plain greedy packed (decode rows ride prefill "
+        f"chunks) against plain chunked: "
+        f"{divergence_notes(first_divergences(riders, refs, tops))}")
+    i, first = next(((j, r) for _, rows in runs.values()
+                     for j, r in enumerate(rows) if r), (0, None))
+    at = prompts[i] + plain[i][:first[0] if first else 0]
+    diag = lane_vs_decode(torch, model, params, at,
+                          dict(conf, scheduler="chunked"))
+    where = (f"at req {i}'s first divergence" if first else
+             f"no spec stream diverges; at req {i}'s first token")
+    say(f"[12 spec bf16] {where}: {lane_note(diag)}")
+    for sched, (outs, _) in runs.items():
+        held(f"spec greedy bf16 {sched}", outs, refs)
     del params
     torch.cuda.empty_cache()
-    line = (f"bf16 spec_k 4 greedy packed: 8/8 requests complete in "
-            f"{wall:.2f} s, accept rate {totals['accept_rate']:.3f}, "
-            f"{totals['spec_rounds']} rounds, verify launches {n_verify} "
-            f"all wgmma (packed by variant {counts['packed_by_variant']}); "
-            f"tokens equal to plain bf16 greedy {same}/{8 * n_new}; x_last "
-            f"rewrite bytes {'equal' if eq else 'differ'} (max |dK| "
-            f"{dk:.3g}, |dV| {dv:.3g})")
-    return line, {"packed_prefill_attention":
-                  counts["packed_prefill_attention"],
-                  "paged_attention": counts["paged_attention"]}
+    return [f"bf16 spec_k 4 greedy {line}; every stream held to plain "
+            f"greedy at 1e-3" for line in lines], launches
 
 
-def serve_swap_bf16(torch):
-    """Phase 13: the swap tier in bf16, TinyLlama-1.1B at published widths.
-    Four low-priority requests fill the batch and the 132-page pool; two
-    high-priority arrivals preempt them mid-decode into the host arena.
-    Every stream equals its uncontended run (one request at a time on a
-    large pool) token for token — a victim gets every written position
-    back bit for bit and resumes straight into decode — preemptions >= 1,
-    resumed == preemptions, and after close the arena and the pool are
-    whole.  Returns (summary, launches)."""
+def hold_streams(label, torch, model, params, prompts, outs, refs,
+                 policies):
+    """Hold each stream to its uninterrupted run through :func:`held`:
+    equal, or a first divergence where the uninterrupted run's top-two
+    margin (:func:`forced_margins`, the stream's sampling policy) is below
+    section 2's 1e-3.  Returns the notes, with each divergence's margin
+    in bf16 ulps of the top logit."""
+    forced = [forced_margins(torch, model, params, p, t, pol)
+              for p, t, pol in zip(prompts, refs, policies)]
+    held(label, outs, [(t, m) for t, (m, _) in zip(refs, forced)])
+    return divergence_notes(first_divergences(
+        outs, [(t, m) for t, (m, _) in zip(refs, forced)],
+        [top for _, top in forced]))
+
+
+def serve_swap_bf16(torch, spec_k=0):
+    """Phase 13 (``spec_k`` 0) and 13b (``spec_k`` 4): the swap tier in
+    bf16, TinyLlama-1.1B at published widths.  Four low-priority requests
+    fill the batch and the 132-page pool; two high-priority arrivals
+    preempt them mid-decode into the host arena.  Every stream equals its
+    uncontended run (on a large pool, with the same ``spec_k``: one
+    request at a time, or with ``spec_k`` all six submitted together) — a
+    victim gets every written position back bit for bit
+    and resumes straight into decode (or the next spec round).  Phase 13
+    holds the streams exactly; 13b through :func:`hold_streams`.
+    Preemptions >= 1, resumed == preemptions, and after close the arena
+    and the pool are whole.  Returns (summary, launches)."""
     from repro_torch import serving
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -1007,14 +1213,22 @@ def serve_swap_bf16(torch):
     highs = [rng.randint(1, v, size=200).tolist() for _ in range(2)]
     n_lo, n_hi = 64, 32
     base = dict(page_size=8, max_batch=4, max_seq_len=512,
-                prefill_chunk_tokens=128)
-    # uncontended: one request at a time on a pool that never fills
+                prefill_chunk_tokens=128, spec_k=spec_k)
+    # uncontended: a pool that never fills, so nothing is preempted; one
+    # request at a time, or with spec_k all at once (a verify lane's bytes
+    # do not depend on the rows beside it, and one at a time costs a spec
+    # round a token)
     session = serving.serve(model, params, serving.ServingConfig(
         num_pages=1024, **base), device=DEVICE)
+    jobs = [(p, n_lo) for p in lows] + [(p, n_hi) for p in highs]
     try:
-        refs = [session.submit(p, max_new_tokens=n).result(timeout=600)
-                for p, n in [(p, n_lo) for p in lows] +
-                [(p, n_hi) for p in highs]]
+        session.warm()
+        if spec_k:
+            handles = [session.submit(p, max_new_tokens=n) for p, n in jobs]
+            refs = [h.result(timeout=600) for h in handles]
+        else:
+            refs = [session.submit(p, max_new_tokens=n).result(timeout=600)
+                    for p, n in jobs]
     finally:
         session.close()
     n_pages = 4 * (-(-(200 + n_lo) // 8))            # 4 lows fill the pool
@@ -1049,36 +1263,143 @@ def serve_swap_bf16(torch):
         preempted = [h.preemptions for h in lo_h + hi_h]
     finally:
         session.close()
+    label = f"swap{' spec_k ' + str(spec_k) if spec_k else ''}"
     if totals["failed"] or totals["preemptions"] < 1 or \
             totals["resumed"] != totals["preemptions"]:
-        raise AssertionError(f"swap: preemptions {totals['preemptions']}, "
-                             f"resumed {totals['resumed']}, failed "
+        raise AssertionError(f"{label}: preemptions "
+                             f"{totals['preemptions']}, resumed "
+                             f"{totals['resumed']}, failed "
                              f"{totals['failed']}")
     if shard.swap_arena.slots_used() or \
             shard.pool.free_count() != n_pages:
-        raise AssertionError(f"swap: leaked {shard.swap_arena.slots_used()}"
-                             f" arena slots, pool {shard.pool.free_count()}"
-                             f"/{n_pages} free")
-    for i, (out, want) in enumerate(zip(outs, refs)):
-        if out != want:
-            j = next((j for j, (a, b) in enumerate(zip(out, want))
-                      if a != b), min(len(out), len(want)))
-            raise AssertionError(
-                f"swap: request {i} (preempted {preempted[i]}x) differs "
-                f"from its uncontended run at token {j} of {len(out)}")
+        raise AssertionError(f"{label}: leaked "
+                             f"{shard.swap_arena.slots_used()} arena slots,"
+                             f" pool {shard.pool.free_count()}/{n_pages} "
+                             f"free")
+    if spec_k:
+        check_verify_launches(label, cfg, totals, counts, ("mma", "wgmma"))
+        tokens = hold_streams(label, torch, model, params, lows + highs,
+                              outs, refs, [None] * len(outs))
+    else:
+        for i, (out, want) in enumerate(zip(outs, refs)):
+            if out != want:
+                j = next((j for j, (a, b) in enumerate(zip(out, want))
+                          if a != b), min(len(out), len(want)))
+                raise AssertionError(
+                    f"{label}: request {i} (preempted {preempted[i]}x) "
+                    f"differs from its uncontended run at token {j} of "
+                    f"{len(out)}")
+        tokens = "all identical to the uncontended runs"
     del params
     torch.cuda.empty_cache()
-    summary = {"requests": len(outs), "preemptions": totals["preemptions"],
+    summary = {"requests": len(outs), "spec_k": spec_k,
+               "preemptions": totals["preemptions"],
                "resumed": totals["resumed"],
                "preempted_per_request": preempted,
                "pages_out": totals["swapped_out"],
                "pages_in": totals["swapped_in"],
                "page_bytes": shard.swap_arena.slot_nbytes,
                "swap_out_s": st["swap_out_s"], "swap_in_s": st["swap_in_s"],
-               "wall_s": wall,
-               "tokens": "all identical to the uncontended runs",
+               "wall_s": wall, "tokens": tokens,
                "arena_slots_used_after": shard.swap_arena.slots_used(),
                "pool_free_after": shard.pool.free_count()}
+    if spec_k:
+        summary.update(spec_rounds=totals["spec_rounds"],
+                       accept_rate=totals["accept_rate"],
+                       packed_by_variant=counts["packed_by_variant"])
+    return summary, {"packed_prefill_attention":
+                     counts["packed_prefill_attention"],
+                     "paged_attention": counts["paged_attention"]}
+
+
+def prompt_for_shard(router, rng, shard, length, vocab):
+    """A random prompt that ``router`` places on ``shard``."""
+    for _ in range(1000):
+        p = rng.randint(1, vocab, size=length).tolist()
+        if router.shard_of(p) == shard:
+            return p
+    raise AssertionError("the router never placed a prompt on the shard")
+
+
+def serve_migrate_bf16(torch):
+    """Phase 13c: live migration in bf16, TinyLlama-1.1B at published
+    widths.  Two shards each run a greedy and a seeded
+    ``TemperatureSampling(0.8)`` request of 200 prompt tokens and 64 new;
+    shard 0 also runs a 12-token request whose completion arms a stall of
+    shard 0 (3 s, past the 1 s heartbeat timeout), so its two long
+    requests are mid-decode when the watchdog migrates them to shard 1.
+    Every stream is held to its uninterrupted run (one request at a time
+    on one shard) through :func:`hold_streams`; at least one migration,
+    none failed, both pools whole after close.  Returns (summary,
+    launches)."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.faults import FaultSpec
+
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=DEVICE)
+    rng = np.random.RandomState(15)
+    base = dict(page_size=8, max_batch=4, max_seq_len=512,
+                prefill_chunk_tokens=128, num_pages=512)
+    conf = serving.ServingConfig(
+        num_shards=2, heartbeat_timeout_s=1.0, watchdog_interval_s=0.02,
+        faults=(FaultSpec(kind="stall", shard=0, after_done=1,
+                          duration_s=3.0),), **base)
+    session = serving.serve(model, params, conf, device=DEVICE, start=False)
+    router = session.engine.router
+    short = prompt_for_shard(router, rng, 0, 200, cfg.vocab_size)
+    longs = [prompt_for_shard(router, rng, sh, 200, cfg.vocab_size)
+             for sh in (0, 0, 1, 1)]
+    pols = [None, serving.TemperatureSampling(temperature=0.8, seed=21),
+            None, serving.TemperatureSampling(temperature=0.8, seed=22)]
+    n_new = 64
+    try:
+        session.warm()
+        session.start()
+        reset_launches()
+        t0 = time.perf_counter()
+        first = session.submit(short, max_new_tokens=12)
+        handles = [session.submit(p, max_new_tokens=n_new, sampling=pol)
+                   for p, pol in zip(longs, pols)]
+        outs = [h.result(timeout=600) for h in handles]
+        first.result(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        totals = session.stats()["totals"]
+        gaps = [len(h.gaps()) for h in handles]
+        shards = session.engine.shards
+    finally:
+        session.close()
+    if totals["migrations"] < 2 or totals["failed"] or \
+            sum(1 for g in gaps[:2] if g) < 2:
+        raise AssertionError(f"migrate: {totals['migrations']} migrations, "
+                             f"{totals['failed']} failed, adoption gaps "
+                             f"per request {gaps} (want shard 0's two "
+                             f"long requests migrated mid-decode)")
+    for shard in shards:
+        if shard.pool.free_count() != shard.config.num_pages:
+            raise AssertionError(f"migrate: shard {shard.shard_id} pool "
+                                 f"{shard.pool.free_count()}/"
+                                 f"{shard.config.num_pages} free")
+    # uninterrupted: one request at a time on one shard
+    ref_session = serving.serve(model, params, serving.ServingConfig(**base),
+                                device=DEVICE)
+    try:
+        ref_session.warm()
+        refs = [ref_session.submit(p, max_new_tokens=n_new, sampling=pol)
+                .result(timeout=600) for p, pol in zip(longs, pols)]
+    finally:
+        ref_session.close()
+    tokens = hold_streams("migrate", torch, model, params, longs, outs, refs,
+                          pols)
+    del params
+    torch.cuda.empty_cache()
+    summary = {"requests": len(outs), "migrations": totals["migrations"],
+               "migrated_per_request": gaps, "wall_s": wall,
+               "tokens": tokens,
+               "pools_free_after": [s.pool.free_count() for s in shards]}
     return summary, {"packed_prefill_attention":
                      counts["packed_prefill_attention"],
                      "paged_attention": counts["paged_attention"]}
@@ -1087,13 +1408,13 @@ def serve_swap_bf16(torch):
 # ----------------------------------------------------------- phase 7
 
 
-def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7):
+def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7, b=4, h=32,
+                d=64):
     """Causal attention at a model's full-sequence shape: B = 4, H = 32,
-    D = 64, S tokens, Hkv kv heads.  Returns a row (times only if
-    ``timed``)."""
+    D = 64 (DeepSeek-V2's MLA prefill: B = 2, H = Hkv = 128, D = 192), S
+    tokens, Hkv kv heads.  Returns a row (times only if ``timed``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    b, h, d = 4, 32, 64
     rng = np.random.RandomState(seed + s + hkv)
     dt = getattr(torch, dtype)
     q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
@@ -1105,10 +1426,10 @@ def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7):
     out = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     if fa.launches.of(variant) != before + 1:
-        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}]: the "
-                             f"{variant} variant did not launch")
+        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}, D={d}]: "
+                             f"the {variant} variant did not launch")
     if not torch.isfinite(out.float()).all():
-        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}]: "
+        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}, D={d}]: "
                              f"non-finite")
     row = {"name": "flash_attention", "route": "cuda", "variant": variant,
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1411,13 +1732,210 @@ def logits_against_fp32(torch, model, params, tokens, logits):
     return out
 
 
-def main() -> int:
+# ------------------------------------------------------ phases 14a and 14b
+
+MOE_ARCHS = {
+    # arch: (config overrides, flash launches per forward)
+    "olmoe-1b-7b": ({}, 16),
+    # 60 layers (236 B parameters) do not fit one 80 GB card: the dense
+    # first layer and two MoE layers at published widths
+    "deepseek-v2-236b": ({"n_layers": 3}, 3),
+}
+
+
+def moe_model(torch, arch, **over):
+    """A MoE / MLA decoder at published widths with seeded weights on the
+    card (``MOE_ARCHS``' depth cut, then ``over``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).replace(**MOE_ARCHS[arch][0], **over)
+    model = build_model(cfg)
+    return model, model.init(seed=0, device=DEVICE)
+
+
+def moe_fp32(torch, arch, b=2, s=256, n_new=16):
+    """Phase 14a: fp32 at capacity factor n_experts / top_k (dropless:
+    with finite capacity a batch drops other tokens than one token at a
+    time), ``logits_fn`` over B prompts of S tokens held against
+    token-by-token ``decode_step`` at every position, then ``n_new``
+    greedy tokens against the forward over prompt and tokens; every flash
+    launch the ``fma`` variant, one per attention layer of a forward.
+    Returns (line, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    base = get_config(arch)
+    model, params = moe_model(
+        torch, arch, dtype="float32",
+        capacity_factor=base.n_experts / base.top_k)
+    cfg = model.cfg
+    per_forward = MOE_ARCHS[arch][1]
+    rng = np.random.RandomState(16)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(
+        DEVICE)
+    counted = {"flash_attention": 0}
+
+    def forward(toks):
+        reset_launches()
+        logits, _ = model.logits_fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        if not fa.launches.count == fa.launches.of("fma") == per_forward:
+            raise AssertionError(
+                f"{arch} fp32: flash launches per forward "
+                f"{fa.launches.by_variant}, want {per_forward} fma")
+        counted["flash_attention"] += fa.launches.count
+        return logits
+
+    def step(cache, toks, t):
+        return model.decode_step(params, cache, {
+            "tokens": toks, "cache_len": torch.full(
+                (b,), t + 1, dtype=torch.int32, device=DEVICE)})
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = forward(tokens)
+        cache = model.init_cache(b, s + n_new + 1, device=DEVICE)
+        dec = []
+        for t in range(s):
+            logits, cache = step(cache, tokens[:, t:t + 1], t)
+            dec.append(logits)
+        err_prompt = close_enough(torch.stack(dec, 1), full, MODEL_TOL)
+        del dec, full
+        gen, gen_logits = [torch.argmax(logits, -1)], []
+        for t in range(s, s + n_new):
+            logits, cache = step(cache, gen[-1][:, None], t)
+            gen_logits.append(logits)
+            gen.append(torch.argmax(logits, -1))
+        both = torch.cat([tokens, torch.stack(gen[:-1], 1)], 1)
+        err_gen = close_enough(torch.stack(gen_logits, 1),
+                               forward(both)[:, s:], MODEL_TOL)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del params, cache
+    torch.cuda.empty_cache()
+    return (f"{arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+            f"{cfg.capacity_factor:.4g}): logits_fn (B={b}, S={s}) vs "
+            f"decode_step at every position max_abs_err {err_prompt:.3g}; "
+            f"{n_new} greedy tokens vs forward max_abs_err {err_gen:.3g} "
+            f"(tol {MODEL_TOL}); flash launches per forward {per_forward} "
+            f"fma; {wall:.1f} s"), counted
+
+
+def moe_bf16(torch, arch, b, s=1024, n_new=32):
+    """Phase 14b: bf16 at the config's capacity factor (1.25): prefill
+    through ``logits_fn`` over B prompts of S tokens, then ``n_new``
+    greedy decode steps from a fresh cache fed the prefill's greedy
+    tokens; finite logits; every flash launch the ``wgmma`` variant, one
+    per attention layer; then the prefill's logits against the fp32
+    forward on the same (bf16-rounded) weights: their relative L2
+    distance at most ``LOGITS_RATIO`` times that of the same bf16 forward
+    with attention on the flash kernel's plain version.  Returns
+    (summary, launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    model, params = moe_model(torch, arch)
+    cfg = model.cfg
+    per_forward = MOE_ARCHS[arch][1]
+    rng = np.random.RandomState(17)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(
+        DEVICE)
+    with torch.inference_mode():
+        cache = model.init_cache(b, n_new + 1, device=DEVICE)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = model.logits_fn(params, {"tokens": tokens})
+        tok = torch.argmax(logits[:, -1], -1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        finite = bool(torch.isfinite(logits).all())
+        launches = {"flash_attention": fa.launches.count}
+        by_variant = dict(fa.launches.by_variant)
+        prefill = logits
+        t2 = time.perf_counter()
+        for t in range(n_new):
+            logits, cache = model.decode_step(params, cache, {
+                "tokens": tok[:, None], "cache_len": torch.full(
+                    (b,), t + 1, dtype=torch.int32, device=DEVICE)})
+            finite = finite and bool(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del cache
+        # the same bf16 forward with attention on the plain version
+        kernel = ops.flash_attention
+        ops.flash_attention = fa.flash_attention_plain
+        try:
+            plain_logits, _ = model.logits_fn(params, {"tokens": tokens})
+        finally:
+            ops.flash_attention = kernel
+    if not finite:
+        raise AssertionError(f"{arch} bf16: non-finite logits")
+    if not by_variant.get("wgmma", 0) == launches["flash_attention"] == \
+            per_forward:
+        raise AssertionError(
+            f"{arch} bf16: flash launches {by_variant}, want "
+            f"{per_forward} wgmma (one per attention layer)")
+    with torch.no_grad():
+        params.float()                   # in place, one tensor at a time
+    with torch.inference_mode():
+        want, _ = build_model(cfg.replace(dtype="float32")).logits_fn(
+            params, {"tokens": tokens})
+        top1 = want.argmax(-1)
+        vs = {"kernel": rel_l2(prefill, want),
+              "plain": rel_l2(plain_logits, want),
+              "kernel_top1": float((prefill.argmax(-1) == top1).float()
+                                   .mean()),
+              "plain_top1": float((plain_logits.argmax(-1) == top1).float()
+                                  .mean()),
+              "ratio_limit": LOGITS_RATIO}
+    del params, prefill, plain_logits, want
+    torch.cuda.empty_cache()
+    if not vs["kernel"] <= LOGITS_RATIO * vs["plain"]:
+        raise AssertionError(
+            f"{arch} bf16: logits {vs['kernel']:.4g} (relative L2) from "
+            f"the fp32 forward, more than {LOGITS_RATIO} x the "
+            f"{vs['plain']:.4g} of the same forward with attention on the "
+            f"plain version")
+    summary = {"model": arch, "layers": cfg.n_layers,
+               "capacity_factor": cfg.capacity_factor, "batch": b,
+               "prompt_tokens": s, "prefill_s": t1 - t0,
+               "prefill_tok_s": b * s / (t1 - t0), "decode_steps": n_new,
+               "decode_s": t3 - t2, "decode_tok_s": b * n_new / (t3 - t2),
+               "flash_by_variant": by_variant, "logits_vs_fp32": vs}
+    return summary, launches
+
+
+PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
+          "13b", "13c", "14a", "14b")
+
+
+def parse_only(argv):
+    """``--only 7,13c``: run just those phases (to iterate on a few; the
+    kernel table then is not printed).  No argument runs every phase."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit("usage: chip_smoke.py [--only PHASE,PHASE,...]")
+    only = set(argv[1].split(","))
+    if not only <= set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}; "
+                         f"known: {', '.join(PHASES)}")
+    return only
+
+
+def main(argv) -> int:
+    only = parse_only(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import ops
+
+    def on(phase):
+        return only is None or phase in only
 
     # fp32 products stay fp32 (the reference is held at 3e-5)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1431,8 +1949,13 @@ def main() -> int:
     say(f"[2 build] kernels built in {time.perf_counter() - t0:.1f} s")
 
     timer = Timer(torch)
-    kernels = {}
-    for dtype in ("float32", "bfloat16"):
+    kernels, launches = {}, {}
+
+    def add(path_launches):
+        for name, count in path_launches.items():
+            launches[name] = launches.get(name, 0) + count
+
+    for dtype in ("float32", "bfloat16") if on("3") else ():
         t0 = time.perf_counter()
         row = phase_paged(torch, timer, dtype)
         kernels[("paged", dtype)] = row
@@ -1450,7 +1973,7 @@ def main() -> int:
             f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']}){merge} "
             f"[{card}] {time.perf_counter() - t0:.1f} s")
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16") if on("4") else ():
         for n_segs in (1, 8):
             t0 = time.perf_counter()
             row = phase_packed(torch, timer, dtype, n_segs)
@@ -1462,7 +1985,7 @@ def main() -> int:
                 f"bound {row['bound_ms']:.4f} ({row['bound_by']}) [{card}] "
                 f"{time.perf_counter() - t0:.1f} s")
 
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16") if on("4b") else ():
         t0 = time.perf_counter()
         row = phase_packed(torch, timer, dtype, 8,
                            case=verify_case(torch, dtype))
@@ -1474,34 +1997,39 @@ def main() -> int:
             f"library {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
             f"({row['bound_by']}) [{card}] {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    for line in serve_fp32(torch):
-        say(f"[5 serve fp32] {line}")
-    say(f"[5 serve fp32] {time.perf_counter() - t0:.1f} s")
+    if on("5"):
+        t0 = time.perf_counter()
+        for line in serve_fp32(torch):
+            say(f"[5 serve fp32] {line}")
+        say(f"[5 serve fp32] {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    summary, launches = serve_bf16(torch)
-    say(f"[6 serve bf16] {json.dumps(summary)} [{card}] "
-        f"{time.perf_counter() - t0:.1f} s")
+    if on("6"):
+        t0 = time.perf_counter()
+        summary, path_launches = serve_bf16(torch)
+        add(path_launches)
+        say(f"[6 serve bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    for dtype in ("float32", "bfloat16"):
-        for hkv in (32, 4):
-            for s in (1024, 1000):
-                t0 = time.perf_counter()
-                row = phase_flash(torch, timer, dtype, s, hkv,
-                                  timed=s == 1024)
-                kernels[("flash", dtype, hkv, s)] = row
-                say(f"[7 flash {dtype} S={s} Hkv={hkv}] variant "
-                    f"{row['variant']} max_abs_err "
-                    f"{row['max_abs_err']:.3g}" + (
-                        f"; ms {row['ms']:.4f} profiler "
-                        f"{fmt_ms(row['profiler_ms'])} plain "
-                        f"{row['plain_ms']:.4f} "
-                        f"library {row['library_ms']:.4f} bound "
-                        f"{row['bound_ms']:.4f} ({row['bound_by']}) "
-                        f"[{card}]" if "ms" in row else "") +
-                    f" {time.perf_counter() - t0:.1f} s")
-    for dtype in ("float32", "bfloat16"):
+    flash_cases = [(dtype, hkv, s, {}) for dtype in ("float32", "bfloat16")
+                   for hkv in (32, 4) for s in (1024, 1000)] + [
+        (dtype, 128, 1024, dict(b=2, h=128, d=192, seed=19))
+        for dtype in ("float32", "bfloat16")]
+    for dtype, hkv, s, shape in flash_cases if on("7") else ():
+        t0 = time.perf_counter()
+        d = shape.get("d", 64)
+        row = phase_flash(torch, timer, dtype, s, hkv, timed=s == 1024,
+                          **shape)
+        kernels[("flash", dtype, hkv, s, d)] = row
+        say(f"[7 flash {dtype} S={s} Hkv={hkv}"
+            f"{' B=2 H=128 D=192' if d == 192 else ''}] variant "
+            f"{row['variant']} max_abs_err {row['max_abs_err']:.3g}" + (
+                f"; ms {row['ms']:.4f} profiler "
+                f"{fmt_ms(row['profiler_ms'])} plain {row['plain_ms']:.4f} "
+                f"library {row['library_ms']:.4f} bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}) [{card}]"
+                if "ms" in row else "") +
+            f" {time.perf_counter() - t0:.1f} s")
+    for dtype in ("float32", "bfloat16") if on("8") else ():
         for n in (128, 64):
             for s in (1024, 1000):
                 t0 = time.perf_counter()
@@ -1522,55 +2050,81 @@ def main() -> int:
                         f"[{card}]" if "ms" in row else "") +
                     f" {time.perf_counter() - t0:.1f} s")
 
-    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+    for arch in ("mamba2-1.3b", "zamba2-1.2b") if on("9") else ():
         t0 = time.perf_counter()
         line = model_fp32(torch, arch)
         say(f"[9 model fp32] {line} {time.perf_counter() - t0:.1f} s")
-    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+    for arch in ("mamba2-1.3b", "zamba2-1.2b") if on("10") else ():
         t0 = time.perf_counter()
         summary, path_launches = model_bf16(torch, arch)
-        for name, count in path_launches.items():
-            launches[name] = launches.get(name, 0) + count
+        add(path_launches)
         say(f"[10 model bf16] {json.dumps(summary)} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    say(f"[11 sampler] {phase_sampler(torch, timer)} [{card}] "
-        f"{time.perf_counter() - t0:.1f} s")
+    if on("11"):
+        t0 = time.perf_counter()
+        say(f"[11 sampler] {phase_sampler(torch, timer)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    def add(path_launches):
-        for name, count in path_launches.items():
-            launches[name] = launches.get(name, 0) + count
+    if on("12"):
+        t0 = time.perf_counter()
+        lines, path_launches = serve_spec_fp32(torch)
+        add(path_launches)
+        for line in lines:
+            say(f"[12 spec fp32] {line}")
+        say(f"[12 spec fp32] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lines, path_launches = serve_spec_bf16(torch)
+        add(path_launches)
+        for line in lines:
+            say(f"[12 spec bf16] {line} [{card}]")
+        say(f"[12 spec bf16] {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    lines, path_launches = serve_spec_fp32(torch)
-    add(path_launches)
-    for line in lines:
-        say(f"[12 spec fp32] {line}")
-    say(f"[12 spec fp32] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    line, path_launches = serve_spec_bf16(torch)
-    add(path_launches)
-    say(f"[12 spec bf16] {line} [{card}] {time.perf_counter() - t0:.1f} s")
+    for phase, fn in (("13", lambda: serve_swap_bf16(torch)),
+                      ("13b", lambda: serve_swap_bf16(torch, spec_k=4)),
+                      ("13c", lambda: serve_migrate_bf16(torch))):
+        if not on(phase):
+            continue
+        t0 = time.perf_counter()
+        summary, path_launches = fn()
+        add(path_launches)
+        name = {"13": "swap", "13b": "spec swap", "13c": "migrate"}[phase]
+        say(f"[{phase} {name} bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    summary, path_launches = serve_swap_bf16(torch)
-    add(path_launches)
-    say(f"[13 swap bf16] {json.dumps(summary)} [{card}] "
-        f"{time.perf_counter() - t0:.1f} s")
+    for arch in MOE_ARCHS if on("14a") else ():
+        line, path_launches = moe_fp32(torch, arch)
+        add(path_launches)
+        say(f"[14a moe fp32] {line}")
+    for arch, b in (("olmoe-1b-7b", 4), ("deepseek-v2-236b", 2)) \
+            if on("14b") else ():
+        t0 = time.perf_counter()
+        summary, path_launches = moe_bf16(torch, arch, b)
+        add(path_launches)
+        say(f"[14b moe bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
 
-    table = []
-    for key, name in ((("paged", "bfloat16"), "paged_attention"),
-                      (("packed", "bfloat16", 8),
-                       "packed_prefill_attention"),
-                      (("flash", "bfloat16", 32, 1024), "flash_attention"),
-                      (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
-        row = {k: v for k, v in kernels[key].items()
-               if k not in ("errs", "splits", "no_keys_profiler_ms",
-                            "long_row", "shares", "fma")}
-        row["launches"] = launches[name]
-        table.append(row)
-    say(json.dumps({"kernels": table}))
+    if only is None:
+        table = []
+        for key, name in ((("paged", "bfloat16"), "paged_attention"),
+                          (("packed", "bfloat16", 8),
+                           "packed_prefill_attention"),
+                          (("flash", "bfloat16", 32, 1024, 64),
+                           "flash_attention"),
+                          (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
+            row = {k: v for k, v in kernels[key].items()
+                   if k not in ("errs", "splits", "no_keys_profiler_ms",
+                                "long_row", "shares", "fma")}
+            row["launches"] = launches[name]
+            table.append(row)
+        say(json.dumps({"kernels": table}))
+    else:
+        # a subset checked: no kernel table and no result line, so a
+        # partial run cannot be read as the full pass
+        say(f"[partial] phases {sorted(only)} only; no kernel table, no "
+            f"result")
+        say(card)
+        return 0
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1579,4 +2133,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -170,8 +170,37 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch ({why})")
 
 
+def ptxas_summary(log: str):
+    """(kernel instance, registers, spill store bytes, spill load bytes)
+    for each entry function in one ``-Xptxas -v`` log, in order."""
+    import re
+    rows, entry, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            rows.append((entry, int(m.group(1))) + spill)
+            entry, spill = None, (0, 0)
+    return rows
+
+
 if __name__ == "__main__":
     # python -m repro_torch.kernels.build: print each kernel's registers,
-    # shared memory and spills (needs nvcc; run on the machine with the card)
+    # shared memory and spills (needs nvcc; run on the machine with the
+    # card), then one line per kernel instance and the spill-free count
+    rows = []
     for _name, _log in ptxas_report().items():
         print(f"== {_name}.cu\n{_log}")
+        rows += ptxas_summary(_log)
+    for _entry, _regs, _st, _ld in rows:
+        print(f"{_regs:4d} registers, spill {_st}/{_ld} B  {_entry}")
+    print(f"{sum(1 for r in rows if not r[2] and not r[3])} of {len(rows)} "
+          f"kernel instances spill-free")

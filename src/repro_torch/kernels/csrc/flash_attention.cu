@@ -15,24 +15,29 @@
 // S = 1024, H = 32, D = 64) the causal product is 17.2 GFLOP against
 // 67 MB of q, k, v and out (bf16): 0.017 ms at 989 TFLOP/s, 0.020 ms at
 // 3.35 TB/s, and the arithmetic intensity of one (query tile, key tile)
-// pair is far above the card's ~295 flops/byte.  So the design feeds the
-// tensor cores:
+// pair is far above the card's ~295 flops/byte.  At DeepSeek-V2's MLA
+// prefill (B = 2, S = 1024, H = 128, D = 192) the two come close: 403 MB
+// take 0.120 ms, 103 GFLOP 0.104 ms.  So the design feeds the tensor
+// cores:
 //
-// * flash_attention_tc_launch -- bf16 with D = 64 or 128.  One warpgroup
+// * flash_attention_tc_launch -- bf16 with D = 64, 128 or 192 (MLA's
+//   nope 128 + rope 64, V padded to match).  One warpgroup
 //   (128 threads) per tile of 64 query rows.  QK^T is wgmma m64n64k16 with
 //   Q and K read from shared memory in the 128-byte-swizzled layout; PV is
 //   wgmma m64n64k16 with P in registers (bf16, after the fp32 rescale) and
 //   V read through the descriptor's transpose bit.  Q, K and V tiles come in
 //   by TMA over 4-D tensor maps (D, heads, S, B) with box (64, 1, 64, 1),
-//   so a ragged S tail is zero-filled inside its own batch; K/V tiles sit
-//   in a ring of kStages stages completed on mbarriers, and each tile's
-//   copy overlaps the products of the tiles before it.  The scale is folded
-//   with log2(e) into exp2 on the fp32 scores.  Shared helpers:
-//   attn_tc.cuh.
+//   one box per 64-wide column block (a 128-byte swizzle row; D = 192
+//   takes three), so a ragged S tail is zero-filled inside its own batch;
+//   K/V tiles sit in a ring of kStages stages completed on mbarriers, and
+//   each tile's copy overlaps the products of the tiles before it.  The
+//   scale is folded with log2(e) into exp2 on the fp32 scores.  Shared
+//   helpers: attn_tc.cuh.
 // * flash_attention_launch -- every other call (fp32, and bf16 with any
 //   other D): the first version, fp32 FMAs from shared memory.  Each of
 //   its 256 threads owns 4 query rows x 4 keys of a 64 x 64 score tile and
-//   the same 4 rows x D / 16 output columns.  fp32 stays off the tensor
+//   the same 4 rows x D / 16 output columns (D <= 192; at 192 the block
+//   holds 165 KB of shared memory).  fp32 stays off the tensor
 //   cores: its tolerance is 3e-5, and TF32 keeps about 1e-3.
 #include <cuda.h>
 
@@ -48,7 +53,7 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kLdp = kBlockK + 4;   // score-tile stride: the two row groups
                                     // of a warp land on different banks
-constexpr int kMaxCols = 8;         // D / 16 output columns a thread, D <= 128
+constexpr int kMaxCols = 12;        // D / 16 output columns a thread, D <= 192
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -426,8 +431,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core variant: bf16 only, D = 64 or 128, every pointer 16-byte
-// aligned (TMA).  Returns cudaGetLastError() (or the encode failure).
+// The tensor-core variant: bf16 only, D = 64, 128 or 192, every pointer
+// 16-byte aligned (TMA).  Returns cudaGetLastError() (or the encode failure).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* out, int B,
                                          int Sq, int Sk, int H, int Hkv,
@@ -438,6 +443,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
     return tcf::launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale, s);
   if (D == 128)
     return tcf::launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
+                            s);
+  if (D == 192)
+    return tcf::launch<192>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,12 +16,15 @@ accepts Sq == Sk only and raises otherwise.
 
 Bound on H100: operations.  At the models' shapes (S = 1000–1024, D = 64)
 the causal product is about 4 * B * H * S^2 / 2 * D operations against a
-few MB of q, k, v and out.  Two variants, chosen openly by
-:func:`kernel_variant` from the dtype and the head dim:
+few MB of q, k, v and out.  At DeepSeek-V2's MLA prefill (B = 2, S = 1024,
+H = 128, D = 192) the two come close in bf16: 403 MB take 0.120 ms at
+3.35 TB/s, 1.03e11 operations 0.104 ms at 989 TFLOP/s.  Two variants,
+chosen openly by :func:`kernel_variant` from the dtype and the head dim:
 
 * ``"wgmma"`` — bf16 with D in :data:`TC_HEAD_DIMS` (every config that
-  reaches this kernel: TinyLlama and Zamba2 use 64, Qwen3 and Llama-3
-  128).  QK^T and PV on the tensor cores (wgmma), Q/K/V tiles by TMA into
+  reaches this kernel: TinyLlama and Zamba2 use 64, OLMoE, Qwen3 and
+  Llama-3 128, DeepSeek-V2's MLA 192, nope 128 + rope 64 with V padded).
+  QK^T and PV on the tensor cores (wgmma), Q/K/V tiles by TMA into
   a two-stage ring.  Needs 16-byte-aligned tensors (TMA).
 * ``"fma"`` — fp32 (its 3e-5 tolerance rules out TF32) and bf16 with any
   other D: the first version, fp32 FMAs from shared memory.
@@ -39,8 +42,8 @@ import torch
 
 from . import build, ref
 
-MAX_HEAD_DIM = 128   # the FMA kernel's register tile covers D <= 128
-TC_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 192   # the FMA kernel's register tile covers D <= 192
+TC_HEAD_DIMS = (64, 128, 192)
 
 launches = build.LaunchCounter()
 

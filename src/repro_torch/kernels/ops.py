@@ -12,11 +12,12 @@ import torch
 from . import build, ref
 from .flash_attention import flash_attention
 from .packed_prefill import packed_prefill_attention
-from .paged_attention import paged_attention
+from .paged_attention import paged_attention, paged_splits
 from .ssd_scan import ssd_scan as ssd
 
-__all__ = ["flash_attention", "paged_attention", "packed_prefill_attention",
-           "ssd", "sample_tokens", "spec_verify_rows", "prepare"]
+__all__ = ["flash_attention", "paged_attention", "paged_splits",
+           "packed_prefill_attention", "ssd", "sample_tokens",
+           "spec_verify_rows", "prepare"]
 
 
 def prepare(device) -> None:

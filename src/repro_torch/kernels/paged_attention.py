@@ -90,6 +90,17 @@ def default_num_splits(batch: int, n_kv_heads: int, n_pages: int,
     return max(1, min(want, n_pages // 4, max_splits(variant)))
 
 
+def paged_splits(batch: int, n_heads: int, n_kv_heads: int, head_dim: int,
+                 n_pages: int, dtype, device):
+    """The split count a call of ``batch`` rows runs by default on
+    ``device``, to pass on as ``num_splits`` where another call must sum
+    its rows in the same order; None on the CPU (no splits there)."""
+    variant = kernel_variant(dtype, head_dim, n_heads // n_kv_heads, device)
+    if variant == "plain":
+        return None
+    return default_num_splits(batch, n_kv_heads, n_pages, variant)
+
+
 def split_count(num_splits, batch: int, n_kv_heads: int, n_pages: int,
                 variant: str) -> int:
     """The splits a call runs: :func:`default_num_splits` for ``None``; an

@@ -1,5 +1,5 @@
-"""Model zoo of the torch port: the dense decoder, Mamba2 (``ssm``) and
-Zamba2 (``hybrid``) families."""
+"""Model zoo of the torch port: the dense and MoE / MLA decoders
+(``dense``, ``moe``), Mamba2 (``ssm``) and Zamba2 (``hybrid``)."""
 
 from .params import from_jax_params
 from .registry import build_model

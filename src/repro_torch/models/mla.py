@@ -1,0 +1,96 @@
+"""Multi-head Latent Attention (DeepSeek-V2), ported from the JAX
+package's ``models/mla.py``.
+
+KV is compressed to a ``kv_lora_rank`` latent plus one shared rope head,
+which is all the decode cache stores.  Prefill uses the expanded form,
+k = [W_uk·c_kv, k_rope broadcast over heads] and V padded from v_head_dim
+to nope + rope, through ``blockwise_attention`` (on the card the flash
+kernel at D = nope + rope: 192 at DeepSeek-V2's widths, whose 1 / sqrt(D)
+is MLA's softmax scale).  Decode uses the absorbed form: W_uk folded into
+the query and W_uv applied after the latent-space attention, fp32 einsums
+over the (B, S, rank) and (B, S, rope) caches, updated in place."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import apply_rope, blockwise_attention, rms_norm, rope_angles
+
+
+def _project_q(p, cfg, x, positions):
+    b, s, _ = x.shape
+    h, nope, rope = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    q_lat = rms_norm(x @ p.w_dq, p.q_norm)
+    q = (q_lat @ p.w_uq).reshape(b, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ang = rope_angles(positions, rope, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, ang)
+
+
+def _project_kv_latent(p, cfg, x, positions):
+    rank, rope = cfg.kv_lora_rank, cfg.rope_head_dim
+    lat = x @ p.w_dkv
+    c_kv = rms_norm(lat[..., :rank], p.kv_norm)
+    ang = rope_angles(positions, rope, cfg.rope_theta)
+    k_rope = apply_rope(lat[..., rank:][..., None, :], ang)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_attention_train(p, cfg, x, positions):
+    """Expanded form for prefill: x (B, S, d), positions (1 or B, S) →
+    (out (B, S, d), (c_kv (B, S, rank), k_rope (B, S, rope)))."""
+    b, s, _ = x.shape
+    h, nope, rope, vdim = (cfg.n_heads, cfg.nope_head_dim,
+                           cfg.rope_head_dim, cfg.v_head_dim)
+    q_nope, q_rope = _project_q(p, cfg, x, positions)
+    c_kv, k_rope = _project_kv_latent(p, cfg, x, positions)
+    k_nope = (c_kv @ p.w_uk).reshape(b, s, h, nope)
+    v = (c_kv @ p.w_uv).reshape(b, s, h, vdim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)],
+                  dim=-1)
+    # V padded up to the QK head dim, so one kernel serves both products
+    v = F.pad(v, (0, nope + rope - vdim))
+    out = blockwise_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True)
+    out = out[..., :vdim].reshape(b, s, h * vdim)
+    return out @ p.wo, (c_kv, k_rope)
+
+
+def mla_attention_decode(p, cfg, x, cache_ckv, cache_krope, cache_len,
+                         positions):
+    """Absorbed decode of one token per row: x (B, 1, d); cache_ckv
+    (B, S, rank) and cache_krope (B, S, rope), written in place at slot
+    ``cache_len - 1``; cache_len (B,) includes the new token.  Returns
+    (out (B, 1, d), cache_ckv, cache_krope)."""
+    b = x.shape[0]
+    h, nope, rope, vdim = (cfg.n_heads, cfg.nope_head_dim,
+                           cfg.rope_head_dim, cfg.v_head_dim)
+    rank = cfg.kv_lora_rank
+    q_nope, q_rope = _project_q(p, cfg, x, positions)       # (B, 1, H, .)
+    c_new, kr_new = _project_kv_latent(p, cfg, x, positions)
+    bidx = torch.arange(b, device=x.device)
+    pos = (cache_len - 1).long()                             # write slot
+    cache_ckv[bidx, pos] = c_new[:, 0].to(cache_ckv.dtype)
+    cache_krope[bidx, pos] = kr_new[:, 0].to(cache_krope.dtype)
+
+    w_uk = p.w_uk.reshape(rank, h, nope).float()
+    # absorb: q' = q_nope · W_uk → (B, H, rank)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
+    scale = 1.0 / math.sqrt(nope + rope)
+    s_lat = torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv.float()) * scale
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                          cache_krope.float()) * scale
+    scores = s_lat + s_rope
+    mask = torch.arange(cache_ckv.shape[1], device=x.device)[None, :] < \
+        cache_len.long()[:, None]
+    scores = scores.masked_fill(~mask[:, None, :], -1e30)
+    pvals = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", pvals, cache_ckv.float())
+    w_uv = p.w_uv.reshape(rank, h, vdim).float()
+    out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv)
+    out = out.reshape(b, 1, h * vdim).to(x.dtype)
+    return out @ p.wo, cache_ckv, cache_krope

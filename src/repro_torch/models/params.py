@@ -1,6 +1,6 @@
-"""Parameters of the ported model families (dense decoder, Mamba2, Zamba2):
-``nn.Module`` containers, seeded init on a device, and the bridge from the
-JAX package's parameter tree.
+"""Parameters of the ported model families (dense, MoE and MLA decoders,
+Mamba2, Zamba2): ``nn.Module`` containers, seeded init on a device, and
+the bridge from the JAX package's parameter tree.
 
 Weights keep the JAX layout ``(in, out)`` (``x @ W``), so the bridge is a
 copy, never a transpose.  Init follows the reference's scheme
@@ -56,23 +56,63 @@ class FFNParams(nn.Module):
         self.wo = _frozen(wo)
 
 
+class MoEFFNParams(nn.Module):
+    """A routed expert FFN: router (d, E); wi_gate / wi_up (E, d, F); wo
+    (E, F, d); with ``n_shared_experts`` a plain SwiGLU of width
+    F * n_shared beside it: shared_wi_gate / shared_wi_up (d, F * n),
+    shared_wo (F * n, d)."""
+
+    NAMES = ("router", "wi_gate", "wi_up", "wo")
+    SHARED = ("shared_wi_gate", "shared_wi_up", "shared_wo")
+
+    def __init__(self, **leaves):
+        super().__init__()
+        for name in self.NAMES:
+            setattr(self, name, _frozen(leaves[name]))
+        self.shared = self.SHARED[0] in leaves
+        for name in self.SHARED:
+            setattr(self, name, _frozen(leaves[name]) if self.shared
+                    else None)
+
+
+class MLAParams(nn.Module):
+    """Multi-head latent attention: w_dq (d, q_rank), q_norm (q_rank,),
+    w_uq (q_rank, H (nope + rope)), w_dkv (d, rank + rope), kv_norm
+    (rank,), w_uk (rank, H nope), w_uv (rank, H v), wo (H v, d)."""
+
+    NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv",
+             "wo")
+
+    def __init__(self, **leaves):
+        super().__init__()
+        for name in self.NAMES:
+            setattr(self, name, _frozen(leaves[name]))
+
+
 class BlockParams(nn.Module):
-    def __init__(self, ln1, ln2, attn: AttentionParams, ffn: FFNParams):
+    """ln1, ln2; ``attn`` an :class:`AttentionParams` or
+    :class:`MLAParams`; ``ffn`` an :class:`FFNParams` or
+    :class:`MoEFFNParams` (the block's kind, :func:`layer_kinds`)."""
+
+    def __init__(self, ln1, ln2, attn, ffn):
         super().__init__()
         self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
         self.attn, self.ffn = attn, ffn
 
 
 class DecoderParams(nn.Module):
-    """embed (V, d), final_norm (d,), lm_head (d, V), and one
+    """embed (V, d), final_norm (d,), lm_head (d, V), one
     :class:`BlockParams` per layer (the reference stacks them on a leading
-    ``L`` axis for ``lax.scan``; here they are a list)."""
+    ``L`` axis for ``lax.scan``; here they are a list), and before them
+    the ``first_dense_layers`` prefix as ``head_blocks`` (the reference's
+    ``head_block_{i}`` subtrees)."""
 
-    def __init__(self, embed, final_norm, lm_head, blocks):
+    def __init__(self, embed, final_norm, lm_head, blocks, head_blocks=()):
         super().__init__()
         self.embed = _frozen(embed)
         self.final_norm = _frozen(final_norm)
         self.lm_head = _frozen(lm_head)
+        self.head_blocks = nn.ModuleList(head_blocks)
         self.blocks = nn.ModuleList(blocks)
 
 
@@ -129,16 +169,59 @@ class _Init:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
 
-def _init_block(ini: _Init, cfg) -> BlockParams:
-    """One dense block (also Zamba2's shared block)."""
+def layer_kinds(cfg):
+    """Each layer's kind, ``dense | moe | mla_dense | mla_moe``: MoE from
+    layer ``first_dense_layers`` on when the config has experts, MLA
+    everywhere when it uses MLA (the reference's ``_layer_kinds``)."""
+    return [("mla_" if cfg.use_mla else "") +
+            ("moe" if cfg.n_experts > 0 and i >= cfg.first_dense_layers
+             else "dense") for i in range(cfg.n_layers)]
+
+
+def _init_attention(ini: _Init, cfg) -> AttentionParams:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ln1, ln2 = ini.ones(d), ini.ones(d)
-    attn = AttentionParams(
+    return AttentionParams(
         ini.normal(d, h * hd), ini.normal(d, kv * hd),
         ini.normal(d, kv * hd), ini.normal(h * hd, d),
         *((ini.ones(hd), ini.ones(hd)) if cfg.qk_norm else ()))
-    ffn = FFNParams(ini.normal(d, cfg.d_ff), ini.normal(d, cfg.d_ff),
-                    ini.normal(cfg.d_ff, d))
+
+
+def _init_mla(ini: _Init, cfg) -> MLAParams:
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, vdim = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    rank, qrank = cfg.kv_lora_rank, cfg.q_lora_rank
+    return MLAParams(
+        w_dq=ini.normal(d, qrank), q_norm=ini.ones(qrank),
+        w_uq=ini.normal(qrank, h * (nope + rope)),
+        w_dkv=ini.normal(d, rank + rope), kv_norm=ini.ones(rank),
+        w_uk=ini.normal(rank, h * nope), w_uv=ini.normal(rank, h * vdim),
+        wo=ini.normal(h * vdim, d))
+
+
+def _init_moe(ini: _Init, cfg) -> MoEFFNParams:
+    """As the reference: every leaf fan-in scaled by its FIRST dimension,
+    so the (E, ., .) expert weights by 1 / sqrt(E)."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    leaves = dict(router=ini.normal(d, e), wi_gate=ini.normal(e, d, f),
+                  wi_up=ini.normal(e, d, f), wo=ini.normal(e, f, d))
+    if cfg.n_shared_experts:
+        sd = f * cfg.n_shared_experts
+        leaves.update(shared_wi_gate=ini.normal(d, sd),
+                      shared_wi_up=ini.normal(d, sd),
+                      shared_wo=ini.normal(sd, d))
+    return MoEFFNParams(**leaves)
+
+
+def _init_block(ini: _Init, cfg, kind: str = "dense") -> BlockParams:
+    """One block of ``kind`` (a dense block is also Zamba2's shared
+    block)."""
+    d = cfg.d_model
+    ln1, ln2 = ini.ones(d), ini.ones(d)
+    attn = _init_mla(ini, cfg) if kind.startswith("mla") \
+        else _init_attention(ini, cfg)
+    ffn = _init_moe(ini, cfg) if kind.endswith("moe") else FFNParams(
+        ini.normal(d, cfg.d_ff), ini.normal(d, cfg.d_ff),
+        ini.normal(cfg.d_ff, d))
     return BlockParams(ln1, ln2, attn, ffn)
 
 
@@ -165,12 +248,16 @@ def _init_outer(ini: _Init, cfg):
 
 
 def init_params(cfg, seed: int = 0, device=None) -> DecoderParams:
-    """Seeded init of a dense decoder at ``cfg``'s widths, on ``device``
-    (``None`` = the card)."""
+    """Seeded init of a dense, MoE or MLA decoder at ``cfg``'s widths, on
+    ``device`` (``None`` = the card): the ``first_dense_layers`` head
+    blocks, then the tail."""
     ini = _Init(seed, DTYPES[cfg.dtype], resolve_device(device))
     embed, final_norm, lm_head = _init_outer(ini, cfg)
-    blocks = [_init_block(ini, cfg) for _ in range(cfg.n_layers)]
-    return DecoderParams(embed, final_norm, lm_head, blocks)
+    kinds = layer_kinds(cfg)
+    blocks = [_init_block(ini, cfg, kind) for kind in kinds]
+    n_head = cfg.first_dense_layers
+    return DecoderParams(embed, final_norm, lm_head, blocks[n_head:],
+                         blocks[:n_head])
 
 
 def init_mamba2_params(cfg, seed: int = 0, device=None) -> Mamba2Params:
@@ -206,31 +293,44 @@ def _layer(tree, i):
             for k, v in tree.items()}
 
 
-def _bridge_block(blk, cfg, dev) -> BlockParams:
+def _bridge_block(blk, cfg, dev, kind: str = "dense") -> BlockParams:
     a, f = blk["attn"], blk["ffn"]
-    norms = (_tensor(a["q_norm"], dev), _tensor(a["k_norm"], dev)) \
-        if cfg.qk_norm else ()
-    attn = AttentionParams(*(_tensor(a[n], dev)
-                             for n in ("wq", "wk", "wv", "wo")), *norms)
-    ffn = FFNParams(*(_tensor(f[n], dev) for n in ("wi_gate", "wi_up", "wo")))
+    if kind.startswith("mla"):
+        attn = MLAParams(**{n: _tensor(a[n], dev) for n in MLAParams.NAMES})
+    else:
+        norms = (_tensor(a["q_norm"], dev), _tensor(a["k_norm"], dev)) \
+            if cfg.qk_norm else ()
+        attn = AttentionParams(*(_tensor(a[n], dev)
+                                 for n in ("wq", "wk", "wv", "wo")), *norms)
+    if kind.endswith("moe"):
+        ffn = MoEFFNParams(**{n: _tensor(v, dev) for n, v in f.items()})
+    else:
+        ffn = FFNParams(*(_tensor(f[n], dev)
+                          for n in ("wi_gate", "wi_up", "wo")))
     return BlockParams(_tensor(blk["ln1"], dev), _tensor(blk["ln2"], dev),
                        attn, ffn)
 
 
 def from_jax_params(tree, cfg, device):
-    """Bridge the JAX package's parameter tree of a ``dense``, ``ssm``
-    (Mamba2) or ``hybrid`` (Zamba2) model (leaves already converted to
-    numpy, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) onto
-    ``device``.  The stacked ``blocks`` leaves (leading ``L`` axis) are
-    split into per-layer modules; Zamba2's ``shared`` block is taken as
-    it is."""
+    """Bridge the JAX package's parameter tree of a ``dense``, ``moe``
+    (MoE, and MLA + MoE), ``ssm`` (Mamba2) or ``hybrid`` (Zamba2) model
+    (leaves already converted to numpy, e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``) onto ``device``.  The
+    stacked ``blocks`` leaves (leading ``L`` axis) are split into
+    per-layer modules, the ``head_block_{i}`` subtrees become the head
+    blocks; Zamba2's ``shared`` block is taken as it is."""
     dev = torch.device(device)
     outer = (_tensor(tree["embed"], dev), _tensor(tree["final_norm"], dev),
              _tensor(tree["lm_head"], dev))
     blk = tree["blocks"]
-    if cfg.family == "dense":
-        return DecoderParams(*outer, [_bridge_block(_layer(blk, i), cfg, dev)
-                                      for i in range(cfg.n_layers)])
+    if cfg.family in ("dense", "moe"):
+        kinds = layer_kinds(cfg)
+        n_head = cfg.first_dense_layers
+        head = [_bridge_block(tree[f"head_block_{i}"], cfg, dev, kinds[i])
+                for i in range(n_head)]
+        return DecoderParams(*outer, [
+            _bridge_block(_layer(blk, i), cfg, dev, kinds[-1])
+            for i in range(cfg.n_layers - n_head)], head)
     mamba = [MambaBlockParams(**{n: _tensor(blk[n][i], dev)
                                  for n in MambaBlockParams.NAMES})
              for i in range(cfg.n_layers)]

@@ -11,7 +11,7 @@ from .transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return Mamba2LM(cfg)
@@ -19,8 +19,8 @@ def build_model(cfg: ModelConfig):
         return Zamba2LM(cfg)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to torch yet (ROADMAP A.10: "
-        f"other model families); the port builds 'dense', 'ssm' and "
-        f"'hybrid' models")
+        f"other model families); the port builds 'dense', 'moe', 'ssm' "
+        f"and 'hybrid' models")
 
 
 def derive_draft(model, params, spec_draft: str = "auto",

@@ -1,11 +1,17 @@
-"""Dense decoder-only LM, ported from the JAX package's
-``models/transformer.py`` (the ``dense`` family only; moe, mla and vlm are
-not ported yet).
+"""Decoder-only LM of the ``dense`` and ``moe`` families (dense llama-style
+blocks, routed MoE FFNs, MLA attention, and a ``first_dense_layers``
+prefix), ported from the JAX package's ``models/transformer.py``.  The
+``vlm`` family is not ported yet.
 
 The model object holds the config and the functions; the weights are a
 :class:`~repro_torch.models.params.DecoderParams` passed to each call, as
-the reference passes its parameter tree.  The contiguous decode cache is
-``{"k", "v"}`` of shape (L, B, S, Hkv, D), updated in place."""
+the reference passes its parameter tree.  Each layer has a kind,
+``dense | moe | mla_dense | mla_moe`` (:func:`layer_kinds`): the head
+blocks (the first ``first_dense_layers``) theirs, the tail one kind.  The
+contiguous decode cache is ``{"k", "v"}`` of shape (L, B, S, Hkv, D), or
+for MLA ``{"c_kv", "k_rope"}`` of shapes (L, B, S, rank) and
+(L, B, S, rope), L the tail's layers, plus ``head_``-prefixed entries for
+the head blocks; it is updated in place."""
 
 from __future__ import annotations
 
@@ -22,7 +28,10 @@ from .layers import (
     rope_angles,
     update_kv_cache,
 )
-from .params import DTYPES, DecoderParams, init_params, resolve_device
+from .mla import mla_attention_decode, mla_attention_train
+from .moe import apply_moe_ffn
+from .params import (DTYPES, DecoderParams, init_params, layer_kinds,
+                     resolve_device)
 
 
 def _qkv(p, cfg, x):
@@ -38,74 +47,131 @@ def _qkv(p, cfg, x):
     return q, k, v
 
 
-def ffn_apply(p, x):
-    """SwiGLU: p one block's FFNParams."""
+def ffn_apply(p, x, cfg=None, kind: str = "dense"):
+    """The block's FFN: SwiGLU (``p`` an FFNParams), or for a ``moe``
+    kind the routed experts (``p`` a MoEFFNParams; needs ``cfg``)."""
+    if kind.endswith("moe"):
+        return apply_moe_ffn(p, cfg, x)
     return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
 
 
+def attention_train(p, cfg, x, angles):
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    q, k = apply_rope(q, angles), apply_rope(k, angles)
+    out = blockwise_attention(q, k, v, causal=True)
+    return out.reshape(b, s, -1) @ p.wo
+
+
+def block_train(p, cfg, x, angles, kind: str):
+    """One block over the full sequence; ``angles`` are rope angles, or
+    for MLA the positions (MLA applies its own decoupled rope)."""
+    h = rms_norm(x, p.ln1)
+    if kind.startswith("mla"):
+        attn_out, _ = mla_attention_train(p.attn, cfg, h, angles)
+    else:
+        attn_out = attention_train(p.attn, cfg, h, angles)
+    x = x + attn_out
+    return x + ffn_apply(p.ffn, rms_norm(x, p.ln2), cfg, kind)
+
+
+def block_decode(p, cfg, x, cache, i, prefix, cache_len, angles, kind):
+    """One block for one token per row, reading and writing layer ``i`` of
+    the cache entries named with ``prefix`` ("" or "head_")."""
+    h = rms_norm(x, p.ln1)
+    if kind.startswith("mla"):
+        out, _, _ = mla_attention_decode(
+            p.attn, cfg, h, cache[prefix + "c_kv"][i],
+            cache[prefix + "k_rope"][i], cache_len, angles)
+    else:
+        k_cache, v_cache = cache[prefix + "k"][i], cache[prefix + "v"][i]
+        q, k, v = _qkv(p.attn, cfg, h)
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
+        update_kv_cache(k_cache, v_cache, k, v, cache_len - 1)
+        out = decode_attention(q[:, 0], k_cache, v_cache, cache_len)
+        out = out.reshape(x.shape[0], 1, -1) @ p.attn.wo
+    x = x + out
+    return x + ffn_apply(p.ffn, rms_norm(x, p.ln2), cfg, kind)
+
+
 class DecoderLM:
-    """Dense decoder LM (llama-style: RMSNorm, RoPE, GQA, SwiGLU)."""
+    """Dense / MoE / MLA decoder LM (llama-style: RMSNorm, RoPE, GQA,
+    SwiGLU; routed experts; latent attention)."""
 
     def __init__(self, cfg):
-        if cfg.family != "dense" or cfg.use_mla or cfg.n_experts or \
-                cfg.first_dense_layers:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the torch port serves the dense family only; "
-                f"{cfg.name!r} (family {cfg.family!r}) waits for ROADMAP "
-                f"A.10 (other model families)")
+                f"the torch port's decoder builds the dense and moe "
+                f"families; {cfg.name!r} (family {cfg.family!r}) waits for "
+                f"ROADMAP A.10 (other model families)")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
+        self.kinds = layer_kinds(cfg)
+        self.n_head = cfg.first_dense_layers
+        self.n_tail = cfg.n_layers - self.n_head
 
     def init(self, seed: int = 0, device=None) -> DecoderParams:
         """Seeded weights on ``device`` (``None`` = the card)."""
         return init_params(self.cfg, seed, device)
 
+    def _layers(self, params):
+        """(block params, kind, cache prefix, cache index) in order."""
+        return [(blk, self.kinds[i], "head_", i)
+                for i, blk in enumerate(params.head_blocks)] + \
+            [(blk, self.kinds[-1], "", i)
+             for i, blk in enumerate(params.blocks)]
+
+    def _angles(self, positions):
+        cfg = self.cfg
+        if cfg.use_mla:
+            return positions         # MLA applies its own decoupled rope
+        return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
     # ------------------------------------------------------------- train
     def logits_fn(self, params: DecoderParams, batch):
         """Full-sequence forward → (logits (B,S,V), labels)."""
-        cfg = self.cfg
         tokens = batch["tokens"]
         x = params.embed[tokens.long()]
-        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-        angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        for blk in params.blocks:
-            h = rms_norm(x, blk.ln1)
-            q, k, v = _qkv(blk.attn, cfg, h)
-            q, k = apply_rope(q, angles), apply_rope(k, angles)
-            out = blockwise_attention(q, k, v, causal=True)
-            x = x + out.reshape(x.shape[0], x.shape[1], -1) @ blk.attn.wo
-            x = x + ffn_apply(blk.ffn, rms_norm(x, blk.ln2))
+        angles = self._angles(torch.arange(tokens.shape[1],
+                                           device=x.device)[None, :])
+        for blk, kind, _, _ in self._layers(params):
+            x = block_train(blk, self.cfg, x, angles, kind)
         x = rms_norm(x, params.final_norm)
         return x @ params.lm_head, tokens
 
     # ------------------------------------------------------------ decode
     def init_cache(self, batch_size: int, max_len: int,
                    device=None) -> Dict[str, torch.Tensor]:
-        """Zeroed contiguous cache {"k", "v"}: (L, B, S, Hkv, D) each."""
+        """Zeroed contiguous cache: {"k", "v"} (L, B, S, Hkv, D) each, or
+        for MLA {"c_kv", "k_rope"} (L, B, S, rank / rope); L counts the
+        tail, and the head blocks get the same entries prefixed
+        ``head_``."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
-                 cfg.head_dim)
+        if cfg.use_mla:
+            widths = {"c_kv": (cfg.kv_lora_rank,),
+                      "k_rope": (cfg.rope_head_dim,)}
+        else:
+            widths = {"k": (cfg.n_kv_heads, cfg.head_dim),
+                      "v": (cfg.n_kv_heads, cfg.head_dim)}
         dev = resolve_device(device)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+        cache = {}
+        for prefix, n in (("", self.n_tail), ("head_", self.n_head)):
+            if n:
+                for name, w in widths.items():
+                    cache[prefix + name] = torch.zeros(
+                        (n, batch_size, max_len) + w, dtype=self.dtype,
+                        device=dev)
+        return cache
 
     def decode_step(self, params: DecoderParams, cache, batch):
         """One token for every sequence.  batch: tokens (B,1), cache_len
         (B,) including the new token.  Returns (logits (B,V), cache); the
         cache is updated in place."""
-        cfg = self.cfg
         cache_len = batch["cache_len"]
         x = params.embed[batch["tokens"].long()]               # (B,1,d)
-        angles = rope_angles((cache_len - 1)[:, None], cfg.head_dim,
-                             cfg.rope_theta)
-        for i, blk in enumerate(params.blocks):
-            h = rms_norm(x, blk.ln1)
-            q, k, v = _qkv(blk.attn, cfg, h)
-            q, k = apply_rope(q, angles), apply_rope(k, angles)
-            update_kv_cache(cache["k"][i], cache["v"][i], k, v, cache_len - 1)
-            out = decode_attention(q[:, 0], cache["k"][i], cache["v"][i],
-                                   cache_len)
-            x = x + out.reshape(x.shape[0], 1, -1) @ blk.attn.wo
-            x = x + ffn_apply(blk.ffn, rms_norm(x, blk.ln2))
+        angles = self._angles((cache_len - 1)[:, None])
+        for blk, kind, prefix, i in self._layers(params):
+            x = block_decode(blk, self.cfg, x, cache, i, prefix, cache_len,
+                             angles, kind)
         x = rms_norm(x, params.final_norm)
         return x[:, 0] @ params.lm_head, cache

@@ -48,9 +48,15 @@ the reference's):
 * Speculative decoding: the draft re-prefills densely over the batch's
   token buffer trimmed to its longest stream rounded up to a page (the
   reference pads to ``max_pages * page_size``; the trim gives the same
-  rows at a fraction of the score tensor), and the verify chunk attends
-  through ``ops.packed_prefill_attention`` at ``max_batch * (spec_k + 1)``
-  lanes with dead lanes interleaved.
+  rows at a fraction of the score tensor), and the verify chunk of
+  ``max_batch * (spec_k + 1)`` lanes (dead lanes interleaved) attends
+  through ``ops.paged_attention``, one paged row per lane with the decode
+  step's split count (the reference attends it as packed prefill): a lane
+  sums its keys in the decode step's order, so in bf16 an accepted
+  position's K/V bytes are the plain decode path's.  A greedy row takes
+  its first token from the prefill chunk, as plain greedy does (the
+  reference draws it in the first spec round, recomputing the last
+  prompt position in a verify lane); sampled rows follow the reference.
 * The host swap tier moves a victim's pages with one batched gather and
   one synchronous device-to-host copy (the reference loops page by page);
   bf16 pages travel as their 16-bit patterns (the arena holds ``uint16``),
@@ -59,6 +65,13 @@ the reference's):
   resumes straight into decode (the reference re-ingests the tail by
   prefill): the port's prefill and decode kernels round differently, and
   this keeps a resumed stream bit-exact on the card.
+* Live migration carries a decoding sequence's pages to the target shard
+  the same way (``steal_live`` copies them to the host under the source's
+  step lock, the target's admission scatters them into its own pages and
+  resumes the sequence straight into decode); the reference re-ingests
+  the folded tokens by prefill on the target, which in bf16 on the card
+  moved a migrated stream off its uninterrupted run.  Queued and
+  prefilling requests still migrate by re-prefill.
 * Kernels are built when the shard is constructed (``ops.prepare``), never
   inside a step, where a first build would hold the step lock and read as
   a stall to the watchdog.  :meth:`_ShardEngine.warm_packed`,
@@ -166,6 +179,11 @@ class Request:
     # positions 0.._swap_tokens-1 of the replay prompt have their K/V in
     # the shard's swap arena
     _swap_tokens: int = 0
+    # a live-migrated decoding sequence's pages, carried from the source
+    # shard: (k, v, n) host copies (pages, L, page, Hkv, D) of replay-prompt
+    # positions 0..n-1, taken by the source's steal_live and consumed by
+    # the target's admission
+    _carried: Optional[tuple] = None
     # ITL gap accounting (DESIGN.md §17): set by preemption/migration, the
     # next _emit() marks the incoming inter-token interval as a service
     # gap — excluded from RequestHandle.itl() and the ITL-SLO observation,
@@ -212,7 +230,10 @@ def verify_lanes(ctx, nd, occ, spec_k: int):
     (their positions may lie past the row's page run: nothing may index
     with them).  ctx, nd, occ: (B,) host arrays.  Returns (lane_row (LV,),
     positions (LV,) int32, seg_ids (LV,) int32, seg_ctx (B,) int32: one
-    past each row's last live position, 0 for unoccupied rows)."""
+    past each row's last live position, 0 for unoccupied rows).  The
+    engine's verify takes the first three; seg_ctx completes the packed
+    kernel's operands at this layout (the reference's verify), which
+    ``chip_smoke.py`` phase 4b and the layout tests hold and time."""
     lanes_per = spec_k + 1
     lv = len(ctx) * lanes_per
     lane_row = np.arange(lv) // lanes_per
@@ -292,6 +313,13 @@ class _ShardEngine:
         # the paged KV pool, written in place by every device function
         self.k_pages = torch.zeros(kv, dtype=self.dtype, device=self.device)
         self.v_pages = torch.zeros(kv, dtype=self.dtype, device=self.device)
+        # the paged kernel's split count of the decode step (max_batch
+        # rows), passed to every paged call: the spec verify runs its lanes
+        # as paged rows with the same splits, so each lane sums a row in
+        # the decode step's order
+        self.decode_splits = ops.paged_splits(
+            self.max_batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            self.max_pages, self.dtype, self.device)
         self._waiting = self.admission.new_queue()
         self._wlock = threading.Lock()
         # scheduler states: _prefilling (pages reserved, prompt chunks
@@ -306,9 +334,9 @@ class _ShardEngine:
         self._step_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         # speculative decoding: a sliced-parameter draft proposes spec_k
-        # tokens per round; the target verifies them in ONE packed chunk
-        # call with fused on-device rejection sampling.  The draft runs as
-        # a pure function of the recorded token stream (its cache is
+        # tokens per round; the target verifies them in ONE pass over a
+        # lane chunk with fused on-device rejection sampling.  The draft
+        # runs as a pure function of the recorded token stream (its cache is
         # rebuilt inside the propose call each round), so draft behavior —
         # and with it the accept pattern and the emitted stream — is
         # replay-exact by construction (DESIGN.md §17)
@@ -509,6 +537,17 @@ class _ShardEngine:
         if not self._step_lock.acquire(timeout=timeout):
             return None
         try:
+            for seq in self._active:
+                # a decoding sequence carries every written position's
+                # pages (the partly filled last one too) to its target,
+                # as a swap victim spills them: re-ingesting them by
+                # prefill would round otherwise than the decode steps
+                # that wrote them
+                written = len(seq.tokens) - 1
+                n_pages = -(-written // self.page_size)
+                if n_pages:
+                    k_np, v_np = self._pages_to_host(seq.page_row[:n_pages])
+                    seq.req._carried = (k_np, v_np, written)
             seqs = self._prefilling + self._active
             self._prefilling = []
             self._active = []
@@ -673,7 +712,8 @@ class _ShardEngine:
         def attend(i, q):
             return ops.paged_attention(q[:, 0], self.k_pages[i],
                                        self.v_pages[i], block_tables,
-                                       ctx_lens, occupancy=occ)
+                                       ctx_lens, occupancy=occ,
+                                       num_splits=self.decode_splits)
 
         x = self._layers(x, angles, write, attend)
         return self._logits(x[:, 0])
@@ -802,19 +842,34 @@ class _ShardEngine:
 
     def _spec_verify(self, x_last, d_toks, ctx, nd, occ, rows, sampf, sampi,
                      q_dists):
-        """Target verify: score every draft chain in ONE packed chunk call
-        and rejection-sample on device.
+        """Target verify: score every draft chain in ONE (1, LV, d) pass
+        through the model and rejection-sample on device.
 
         Lane layout: LV = max_batch * (spec_k + 1) lanes; lane i*(k+1)+j
         holds row i's token j (j == 0 → x_last, the latest emitted token
         whose K/V is not yet written; j >= 1 → d_toks[i, j-1]) at absolute
         position ctx[i] - 1 + j.  Dead lanes (j > nd[i], or unoccupied
-        rows) get segment -1 and write nothing, exactly like packed
-        prefill padding; their positions may lie past the row's page run,
-        so the write targets are taken on the host for the live lanes only
-        (the reference gathers every lane's page index and relies on XLA
-        clamping it).  The j == 0 lane REWRITES position ctx-1 each round,
-        which restores cross-run page exactness after a restore-from-swap.
+        rows) write nothing and attend nothing; their positions may lie
+        past the row's page run, so the write targets are taken on the
+        host for the live lanes only (the reference gathers every lane's
+        page index and relies on XLA clamping it).  In a sampled row's
+        first round the j == 0 lane REWRITES the last prompt position,
+        which the prefill chunk wrote (see :meth:`_finish_prefill`).
+
+        Attention runs each lane as one row of the paged decode kernel:
+        the row's block table, ctx = the lane's position + 1, and the
+        decode step's split count, so a lane sums its keys in the order
+        the decode step sums that position's (the reference attends the
+        chunk as packed prefill; the packed and paged kernels round
+        differently, and the first op whose bytes differed between a
+        verify lane and the decode step was that attention).  The
+        projections, norms and FFN are row-wise products: in bf16 at
+        TinyLlama-1.1B's shapes on the H100 their bytes were the decode
+        step's in every layer (``chip_smoke.py``'s ``lane_vs_decode``), so
+        an accepted position's K/V is the plain decode path's there.  In
+        fp32 cuBLAS picks another algorithm by row count (layer 0's FFN
+        differed by 1.3e-6 at 40 rows against 8), so the claim is not
+        made for fp32.
 
         The target's K/V for accepted positions lands in the pages as a
         side effect (lanes j = 0..nd at positions ctx-1..ctx+nd-1); the
@@ -830,17 +885,19 @@ class _ShardEngine:
         b = x_last.shape[0]
         lanes_per = self.spec_k + 1
         pgsz = self.page_size
-        lane_row, positions, seg_ids, seg_ctx = verify_lanes(
+        lane_row, positions, seg_ids, _ = verify_lanes(
             ctx, nd, occ, self.spec_k)
-        wr = np.flatnonzero(seg_ids >= 0)
+        live = seg_ids >= 0
+        wr = np.flatnonzero(live)
         wr_lanes = self._to_dev(wr)
         wr_page = self._to_dev(rows[lane_row[wr], positions[wr] // pgsz]
                                .astype(np.int64))
         wr_slot = self._to_dev((positions[wr] % pgsz).astype(np.int64))
-        seg_ctx = self._to_dev(seg_ctx)
         pos_d = self._to_dev(positions)
-        seg_d = self._to_dev(seg_ids)
-        rows_d = self._to_dev(rows)
+        lane_tables = self._to_dev(rows[lane_row])
+        lane_ctx = self._to_dev(np.where(live, positions + 1, 0)
+                                .astype(np.int32))
+        live_d = self._to_dev(live)
         toks = torch.cat([self._to_dev(x_last)[:, None], d_toks], dim=1)
         x = self.params.embed[toks.reshape(-1)][None]        # (1, LV, d)
         angles = rope_angles(pos_d[None], cfg.head_dim, cfg.rope_theta)
@@ -850,9 +907,10 @@ class _ShardEngine:
             self.v_pages[i, wr_page, wr_slot] = v[0, wr_lanes]
 
         def attend(i, q):
-            return ops.packed_prefill_attention(
-                q[0], self.k_pages[i], self.v_pages[i], rows_d, seg_d,
-                pos_d, seg_ctx)
+            out = ops.paged_attention(
+                q[0], self.k_pages[i], self.v_pages[i], lane_tables,
+                lane_ctx, occupancy=live_d, num_splits=self.decode_splits)
+            return out[None]
 
         x = self._layers(x, angles, write, attend)
         logits = self._logits(x[0])                           # (LV, V)
@@ -1011,8 +1069,11 @@ class _ShardEngine:
         for j, pg in enumerate(pages):
             page_ids[j] = pg.page_id
         seq = _Seq(req, pages, owned_from, page_ids)
-        if resume:
-            self._restore_swapped(req, seq)
+        if resume or req._carried is not None:
+            if resume:
+                self._restore_swapped(req, seq)
+            else:
+                self._restore_carried(req, seq)
             if seq.filled == len(req.prompt) - 1:
                 # every position but the latest token's is back in its
                 # pages: the next decode step (or spec round) writes that
@@ -1183,6 +1244,20 @@ class _ShardEngine:
         self._release_swap(req)
         self.n_resumed += 1
 
+    def _restore_carried(self, req: Request, seq: _Seq) -> None:
+        """Copy a migrated sequence's carried pages (``req._carried``)
+        into its freshly allocated pages past this shard's prefix hit
+        (hit pages win, as on a swap resume) and set its prefill cursor
+        past the carried positions."""
+        k_np, v_np, n_tok = req._carried
+        req._carried = None
+        start = req._hit_tokens          # page-aligned (lookup guarantees)
+        if n_tok > start:
+            first = start // self.page_size
+            self._pages_from_host(seq.page_row[first:k_np.shape[0]],
+                                  k_np[first:], v_np[first:])
+            seq.filled = n_tok
+
     def _emit(self, seq: _Seq, tok: int, lp: float = 0.0) -> None:
         """Append one generated token and wake streamers."""
         seq.tokens.append(tok)
@@ -1234,16 +1309,17 @@ class _ShardEngine:
             self._fault_dispatch()
             logits = self._paged_prefill(
                 buf, seq.page_row, seq.filled, n_valid,
-                emit=seq.filled + n_valid == n_prompt and not self.spec_k)
+                emit=seq.filled + n_valid == n_prompt
+                and self._prefill_emits(seq))
             seq.filled += n_valid
             self.prefill_chunks += 1
             self.prefill_tokens_wasted += chunk - n_valid
         if seq.filled == n_prompt:
             # final chunk: its last-position logits ARE the first token,
             # sampled at absolute position len(prompt); intermediate chunks
-            # never sync with the device.  Speculative mode discards it
-            # (see _finish_prefill) and skips the draw
-            if self.spec_k:
+            # never sync with the device.  Speculative mode discards it for
+            # a sampled row (see _finish_prefill) and skips the draw
+            if not self._prefill_emits(seq):
                 self._finish_prefill(seq, 0)
                 return
             sampf, sampi = self._operands([seq], 1)
@@ -1251,21 +1327,32 @@ class _ShardEngine:
                                    np.asarray([n_prompt]))
             self._finish_prefill(seq, int(tok[0]), float(lp[0]))
 
+    def _prefill_emits(self, seq: _Seq) -> bool:
+        """Whether the final prefill chunk's token is emitted: always in
+        plain mode; in speculative mode for a greedy row only."""
+        return not self.spec_k or seq.req.sampling.temperature <= 0.0
+
     def _finish_prefill(self, seq: _Seq, tok: int, lp: float = 0.0) -> None:
         """A sequence's prompt is fully in pages and its first token is in
         hand: stream it and move the sequence to decoding (or straight to
         done — a max_new_tokens=1 request must not overshoot to 2).
 
-        In SPECULATIVE mode the chunk's token is DISCARDED and nothing is
-        emitted here: every token — including the first — comes out of a
-        spec round, so a freshly admitted request and a resumed one take
-        the exact same emission path (the first fresh position is drawn via
-        accept/residual streams either way, which is what keeps the accept
-        pattern replay-exact; DESIGN.md §17).  The sequence just activates
-        with ``new_tokens = 0``."""
+        In SPECULATIVE mode a sampled row's chunk token is DISCARDED and
+        nothing is emitted here: every token — including the first — comes
+        out of a spec round, so a freshly admitted request and a resumed
+        one take the exact same emission path (the first fresh position is
+        drawn via accept/residual streams either way, which is what keeps
+        the accept pattern replay-exact; DESIGN.md §17).  The sequence just
+        activates with ``new_tokens = 0``.  A greedy row emits the chunk's
+        token, as plain greedy does (the reference discards it for every
+        row): its first spec round then writes a fresh position, where
+        drawing the first token in a verify lane would rewrite the last
+        prompt position's K/V, which the prefill chunk wrote, in the
+        decode kernel's rounding and move every later token off plain
+        greedy's in bf16."""
         req = seq.req
         self._prefilling.remove(seq)
-        if self.spec_k > 0:
+        if not self._prefill_emits(seq):
             seq.new_tokens = 0
             if req.cancelled.is_set():
                 self._finish(seq, "cancelled")
@@ -1389,12 +1476,12 @@ class _ShardEngine:
                              .astype(np.int64)),
                 self._to_dev(wr), self._to_dev(upd[wr]),
                 self._to_dev(slot[wr]))
-            finishing = any(emit[si] < lanes_max
-                            for si in range(len(members)))
             # only a chunk that emits tokens (some prompt completed, or
             # decode riders aboard) syncs with the device
             out_np = lps_np = None
-            if (finishing and not self.spec_k) or n_riders:
+            emitting = any(emit[si] < lanes_max and self._prefill_emits(seq)
+                           for si, (seq, _) in enumerate(members))
+            if emitting or n_riders:
                 sampf, sampi = self._operands(
                     [seq for seq, _ in members] +
                     (list(riders) if n_riders else []), n_b)
@@ -1403,7 +1490,7 @@ class _ShardEngine:
             for si, (seq, take) in enumerate(members):
                 seq.filled += take
                 if emit[si] < lanes_max:
-                    if self.spec_k:     # the token is discarded anyway
+                    if not self._prefill_emits(seq):   # discarded anyway
                         self._finish_prefill(seq, 0)
                     else:
                         self._finish_prefill(seq, int(out_np[si]),
@@ -1445,7 +1532,7 @@ class _ShardEngine:
     def _spec_round(self) -> None:
         """One speculative round for the whole active batch: the draft
         proposes up to spec_k tokens per row, the target verifies every
-        chain in ONE packed chunk call with fused on-device rejection
+        chain in ONE pass over a lane chunk with fused on-device rejection
         sampling, and each row emits its accepted prefix plus the
         correction/bonus token — always ≥ 1 token per row per round (two
         dispatches, one sync).

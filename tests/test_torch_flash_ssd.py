@@ -113,7 +113,7 @@ def test_flash_wrapper_validates_inputs(case):
     elif case == "gqa":
         q = torch.zeros((1, 8, 3, 16))
     elif case == "head_dim":
-        q, k, v = [torch.zeros(t.shape[:3] + (160,)) for t in (q, k, v)]
+        q, k, v = [torch.zeros(t.shape[:3] + (256,)) for t in (q, k, v)]
     else:
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):

@@ -168,6 +168,21 @@ def test_default_num_splits_for_132_sms():
     assert tpa.max_splits("mma") == tpa.TC_MAX_SPLITS == 8
 
 
+@pytest.mark.parametrize("dtype,head_dim,n_heads,want", [
+    (torch.bfloat16, 64, 32, "mma"), (torch.float32, 64, 32, "fma"),
+    (torch.bfloat16, 96, 32, "fma"), (torch.bfloat16, 64, 128, "fma")])
+def test_paged_splits_follow_the_variant(dtype, head_dim, n_heads, want):
+    """``paged_splits`` is the split count a call of that many rows runs
+    by default on the device (the engine passes the decode step's to the
+    spec verify): the variant's default on a CUDA device, None on the
+    CPU.  No card is needed to ask."""
+    assert tpa.kernel_variant(dtype, head_dim, n_heads // 4, "cuda") == want
+    assert tpa.paged_splits(8, n_heads, 4, head_dim, 128, dtype, "cuda") \
+        == tpa.default_num_splits(8, 4, 128, want)
+    assert tpa.paged_splits(8, n_heads, 4, head_dim, 128, dtype,
+                            "cpu") is None
+
+
 @pytest.mark.parametrize("case", ["dtype", "mixed", "index", "shape",
                                   "contiguous"])
 def test_paged_wrapper_validates_inputs(case):

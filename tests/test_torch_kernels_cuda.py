@@ -10,6 +10,9 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
+Flash attention at D = 192 (DeepSeek-V2's MLA prefill, V padded from
+128) is held in both variants, with and without V's zero padding.
+
 The bf16 tensor-core variants (D = 64 and 128) are held at the lengths,
 GQA groups and chunk layouts of the models and the serving engine too:
 S from 1 to 2048, groups 1, 4 and 8, causal and cross lengths; the
@@ -389,6 +392,51 @@ def test_flash_tc_causal_matches_plain(cuda_device, shape):
 def test_flash_tc_cross_lengths_match_plain(cuda_device, shape):
     t = _on(_flash_inputs(shape, seed=17), "bfloat16", cuda_device)
     _flash_tc(t, causal=False)
+
+
+FLASH_192 = [
+    # (B, S, H, Hkv): DeepSeek-V2's MLA prefill runs H = Hkv, D = 192
+    (1, 1, 4, 4), (2, 40, 4, 4), (1, 64, 8, 8), (2, 200, 4, 2),
+    (1, 1000, 8, 8), (2, 1024, 4, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [("float32", "fma"),
+                                           ("bfloat16", "wgmma")])
+@pytest.mark.parametrize("pad_v", [False, True])
+@pytest.mark.parametrize("shape", FLASH_192)
+def test_flash_head_dim_192_matches_plain(cuda_device, shape, pad_v, dtype,
+                                          variant):
+    """D = 192 (MLA: nope 128 + rope 64) in both variants, causal; with
+    ``pad_v`` V's last 64 columns are zero, as MLA pads V from 128, and
+    those output columns must come out exactly zero."""
+    b, s, h, hkv = shape
+    arrays = _flash_inputs((b, s, s, h, hkv, 192), seed=s + h + 192)
+    if pad_v:
+        arrays[2][..., 128:] = 0.0
+    t = _on(arrays, dtype, cuda_device)
+    assert tfa.kernel_variant(t[0].dtype, 192, t[0].device) == variant
+    before = tfa.launches.of(variant)
+    out = ops.flash_attention(*t, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.launches.of(variant) == before + 1
+    out = _np(out)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(
+        out, _np(tfa.flash_attention_plain(*t, causal=True)), **TOLS[dtype])
+    if pad_v:
+        assert np.all(out[..., 128:] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_head_dim_192_cross_lengths(cuda_device, dtype):
+    t = _on(_flash_inputs((2, 70, 300, 4, 2, 192), seed=23), dtype,
+            cuda_device)
+    np.testing.assert_allclose(
+        _np(ops.flash_attention(*t, causal=False)),
+        _np(tfa.flash_attention_plain(*t, causal=False)), **TOLS[dtype])
 
 
 def _packed_chunk(spans, c, h, hkv, d, page, npg, seed, share=0):

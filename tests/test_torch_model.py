@@ -117,11 +117,20 @@ def test_seeded_init_is_deterministic_and_truncated():
             .abstract_params()[0]))
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-base",
-                                  "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
 def test_other_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="A.10"):
         build_model(get_config(arch).reduced())
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_families_are_ported(arch):
+    """The moe family (OLMoE; DeepSeek-V2 with MLA and a dense first
+    layer) builds; tests/test_torch_moe_mla.py holds it against JAX."""
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg).init(seed=0, device="cpu")
+    assert len(params.head_blocks) == cfg.first_dense_layers
+    assert len(params.blocks) == cfg.n_layers - cfg.first_dense_layers
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

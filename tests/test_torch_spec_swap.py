@@ -84,11 +84,11 @@ def _prompts(seed, n, length):
     return [list(rng.randint(1, 200, size=length)) for _ in range(n)]
 
 
-def _migration_prompts():
-    """Two prompts the two-shard router places on shard 0."""
+def _migration_prompts(n=2):
+    """``n`` prompts the two-shard router places on shard 0."""
     router = PrefixRouter(2, CONF["page_size"])
     rng = np.random.RandomState(11)
-    return [_prompt_for_shard(router, rng, 0, 10) for _ in range(2)]
+    return [_prompt_for_shard(router, rng, 0, 10) for _ in range(n)]
 
 
 def _jobs():
@@ -113,6 +113,7 @@ def _jobs():
                  for i, p in enumerate(highs)]
     jobs += [(("mig", i), p, 20, "mig", 0)
              for i, p in enumerate(_migration_prompts())]
+    jobs += [(("miggreedy", 0), _migration_prompts(3)[2], 20, "greedy", 0)]
     jobs += [(("spec", i), p, 8, "spec", 2)
              for i, p in enumerate(_prompts(10, 2, 11))]
     low, hi = _prompts(44, 2, 16)
@@ -307,6 +308,41 @@ def test_spec_greedy_equals_plain_greedy(models, jax_streams, spec_k,
 
 
 @pytest.mark.parametrize("scheduler", ["chunked", "packed"])
+def test_spec_greedy_row_emits_its_first_token_at_prefill(models, scheduler):
+    """In speculative mode a greedy row emits its first token from the
+    final prefill chunk, as plain greedy does (so no verify lane
+    recomputes the last prompt position, which the prefill chunk wrote);
+    a sampled row emits nothing there and draws its first token in a spec
+    round, as the reference does.  Both then finish their streams."""
+    _, _, model, tp = models
+    session = serving.serve(model, tp, serving.ServingConfig(
+        spec_k=2, scheduler=scheduler, **CONF), device="cpu", start=False)
+    shard = session.engine.shards[0]
+    keys = [("greedy", 0), ("spec", 0)]
+    handles = [session.submit(JOBS[k][0], max_new_tokens=JOBS[k][1],
+                              sampling=_policy(serving, JOBS[k][2]))
+               for k in keys]
+    before = []                 # each stream as the first round finds it
+    spec_round = shard._spec_round
+
+    def recording():
+        if not before:
+            before.extend(list(h.req.out_tokens) for h in handles)
+        spec_round()
+    shard._spec_round = recording
+    try:
+        with torch.inference_mode():
+            while shard.step():
+                pass
+    finally:
+        session.close()
+    want, _ = _oracle(model, tp, JOBS[keys[0]][0], 1, None)
+    assert before == [want, []]
+    assert [len(h.req.out_tokens) for h in handles] == \
+        [JOBS[k][1] for k in keys]
+
+
+@pytest.mark.parametrize("scheduler", ["chunked", "packed"])
 def test_spec_sampled_matches_jax_and_is_deterministic(models, jax_streams,
                                                        scheduler):
     _, _, model, tp = models
@@ -468,6 +504,46 @@ def test_sampled_migration_token_exact(models, jax_streams):
     assert migrated, "no migrated request recorded its adoption gap"
     for h in migrated:
         assert len(h.itl()) + len(h.gaps()) == len(h.out_tokens) - 1
+    for shard in shards:
+        assert shard.pool.free_count() == shard.config.num_pages
+
+
+def test_migration_carries_pages_and_replays_exactly(models, jax_streams,
+                                                     monkeypatch):
+    """Live migration carries a decoding sequence's pages to the target
+    shard (no re-prefill of the emitted tokens) and resumes it straight
+    into decode: a greedy and a seeded-sampled request, both mid-decode
+    when shard 0 stalls, still emit the uninterrupted JAX streams in fp32,
+    and both pools are whole after close."""
+    _, _, model, tp = models
+    restored = []
+    carried = _ShardEngine._restore_carried
+
+    def counting(self, req, seq):
+        restored.append((req.req_id, req._carried[2]))
+        carried(self, req, seq)
+    monkeypatch.setattr(_ShardEngine, "_restore_carried", counting)
+    session = _serve(model, tp, num_shards=2, num_pages=128,
+                     heartbeat_timeout_s=0.25, watchdog_interval_s=0.02,
+                     faults=(FaultSpec(kind="stall", shard=0, after_done=1,
+                                       duration_s=2.0),))
+    rng = np.random.RandomState(13)
+    router = session.engine.router
+    short = session.submit(_prompt_for_shard(router, rng, 0, 10),
+                           max_new_tokens=4)
+    keys = [("mig", 0), ("miggreedy", 0)]
+    handles = [session.submit(JOBS[k][0], max_new_tokens=20,
+                              sampling=_policy(serving, JOBS[k][2]))
+               for k in keys]
+    assert short.result(timeout=300) is not None
+    outs = [h.result(timeout=300) for h in handles]
+    totals = session.stats()["totals"]
+    shards = session.engine.shards
+    session.close()
+    assert totals["migrations"] >= 1 and totals["failed_requests"] == 0
+    assert restored, "no migrated sequence carried its pages"
+    assert all(n > 10 for _, n in restored), restored   # mid-decode
+    assert outs == [jax_streams[k][0] for k in keys]
     for shard in shards:
         assert shard.pool.free_count() == shard.config.num_pages
 
