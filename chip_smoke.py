@@ -17,7 +17,7 @@ Phases, in order; each prints one line and any failure exits non-zero:
    read: the fixed cost of one call) and one row of 2048 keys (B = 1: the
    fewest blocks, eight splits of one kv head each);
 4. the packed-prefill kernel against its plain version at the packed
-   chunk's shapes (C = 264 lanes, 1 and 8 segments), likewise, each row
+   chunk's shapes (C = 256 lanes, 1 and 8 segments), likewise, each row
    naming the variant that ran (``wgmma`` for bf16, ``fma`` for fp32) and
    the device time of one launch read from ``torch.profiler`` beside the
    CUDA-event mean;
@@ -34,14 +34,19 @@ Phases, in order; each prints one line and any failure exits non-zero:
    16 requests, every one must complete, both kernels must launch, every
    packed launch must be the tensor-core variant, 22 (one a layer) per
    packed chunk, and every paged launch the ``mma`` variant, 22 per decode
-   step;
+   step and 22 per packed chunk that carries decode riders (their
+   attention), the two printed apart;
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
-   as Zamba2 and Hkv = 4 as TinyLlama, D = 64), and at DeepSeek-V2's MLA
-   prefill (B = 2, S = 1024, H = Hkv = 128, D = 192), fp32 and bf16, with
+   as Zamba2 and Hkv = 4 as TinyLlama, D = 64), at DeepSeek-V2's MLA
+   prefill (B = 2, S = 1024, H = Hkv = 128, D = 192), at Whisper-base's
+   encoder (B = 4, S = 1500, H = Hkv = 8, D = 64, full) and
+   cross-attention (448 queries to 1500 keys, full) and at Qwen2-VL-72B's
+   text backbone (B = 2, S = 1024, H 64, Hkv 8, D 128), fp32 and bf16, with
    kernel, plain, library (one causal GQA ``scaled_dot_product_attention``
    call) and bound times, the variant and the profiler's device time, as
-   in phase 4;
+   in phase 4 (causal rows compare with a causal call, full rows with a
+   full one);
 8. the SSD kernel against its plain version at the Mamba2 block's shapes
    (B = 4, S = 1024 and 1000, H = 64, P = 64, N = 128 as Mamba2-1.3B and
    64 as Zamba2-1.2B, chunk 128, with d_skip), fp32 and bf16, likewise,
@@ -88,10 +93,13 @@ Phases, in order; each prints one line and any failure exits non-zero:
    each stream's first divergence from plain bf16 greedy (``chunked``:
    every generated position in the decode step) is printed with its
    margin in bf16 ulps, as is plain greedy under ``packed`` (its rows
-   ride prefill chunks), with the first differing op at the first
-   diverging spec stream's position; then every spec stream is held by
-   ``held()`` (exact, or a first divergence at a top-2 margin < 1e-3,
-   PERF.md section 2);
+   ride prefill chunks, run there as the decode step), with the first
+   differing op at the first diverging spec stream's position, and the
+   first op whose bytes differ between a packed chunk's rider and the
+   dedicated decode step (in fp32 too);
+   then every spec stream, and plain ``packed``, is held by ``held()``
+   (exact, or a first divergence at a top-2 margin < 1e-3, PERF.md
+   section 2);
 13. the swap tier in bf16: four low-priority requests fill the batch and a
    132-page pool, two high-priority arrivals preempt them mid-decode into
    the host arena; every stream equals its uncontended run token for
@@ -119,10 +127,27 @@ Phases, in order; each prints one line and any failure exits non-zero:
    prefill's logits against the fp32 forward on the same weights within
    ``LOGITS_RATIO`` times the distance of the same bf16 forward with
    attention on the flash kernel's plain version;
-15. the kernel table as one JSON line (each row with the variant of the
+15a. Whisper-base (6 + 6 layers, enc_seq 1500) and Qwen2-VL-72B (published
+   widths, 8 of 80 layers) in fp32: ``logits_fn`` over 2 sequences of
+   128 tokens (Whisper: against 2 x 1500 frames; Qwen2-VL: text at M-RoPE
+   positions t = h = w = i) held against ``decode_step`` at every position
+   (rtol = atol = 2e-3; Whisper's cross cache is each decoder layer's
+   K/V of the port's own encoder memory); every flash launch the ``fma``
+   variant, 18 (Whisper: 6 encoder, 6 decoder self, 6 cross) and 8 per
+   forward;
+15b. both in bf16: Whisper over 4 x 1500 frames and 448 tokens (its text
+   context), Qwen2-VL over 2 x 1024 positions of which 256 are patch
+   embeddings on a 16 x 16 grid at t = 0 and 768 text tokens after them,
+   then 32 decode steps each, timed; finite logits; every flash launch
+   ``wgmma``, 18 and 8 a forward; the prefill's logits against the fp32
+   forward on the same weights within ``LOGITS_RATIO`` times the
+   distance of the same bf16 forward with attention on the flash
+   kernel's plain version;
+16. the kernel table as one JSON line (each row with the variant of the
    main path; the paged row's launches count the verify chunks of phases
-   12 and 13b, the flash row's those of phases 14a and 14b), the card
-   line, and the result line ``{"ok": true, "device": {...}}`` last.
+   12 and 13b and the riders of phases 6 and 12, the flash row's those
+   of phases 10, 14a, 14b, 15a and 15b), the card line, and the result
+   line ``{"ok": true, "device": {...}}`` last.
 
 ``--only 7,13c`` runs just those phases, for iterating on a few: it
 prints no kernel table and no result line.  With no argument every phase
@@ -406,11 +431,12 @@ def paged_long_row(torch, timer, dtype, seed=3):
 
 
 def packed_case(torch, dtype, n_segs, seed=4):
-    """Packed-chunk shapes: C = 264 lanes (256-token budget + 8 decode
-    riders).  With 8 segments: a padding run in the middle of the chunk,
-    three one-lane decode riders, and segment 1 sharing its first eight
-    physical pages (a 64-token prefix-cache hit) with segment 0."""
-    c, h, hkv, d, page, npg = 264, 32, 4, 64, 8, 128
+    """Packed-chunk shapes: C = 256 lanes (the prefill budget; decode
+    riders run as the decode step beside the chunk).  With 8 segments: a
+    padding run in the middle of the chunk, three one-lane prompt tails,
+    and segment 1 sharing its first eight physical pages (a 64-token
+    prefix-cache hit) with segment 0."""
+    c, h, hkv, d, page, npg = 256, 32, 4, 64, 8, 128
     n_phys = 2048
     rng = np.random.RandomState(seed + n_segs)
     dt = getattr(torch, dtype)
@@ -420,8 +446,8 @@ def packed_case(torch, dtype, n_segs, seed=4):
         spans = [(0, 0, 256, 512)]        # (segment, first lane, n, start)
     else:
         spans = [(0, 0, 96, 0), (1, 109, 64, 64), (2, 173, 40, 200),
-                 (3, 213, 32, 424), (4, 245, 16, 800), (5, 261, 1, 1000),
-                 (6, 262, 1, 700), (7, 263, 1, 37)]   # lanes 96..108: padding
+                 (3, 213, 32, 424), (4, 245, 8, 800), (5, 253, 1, 1000),
+                 (6, 254, 1, 700), (7, 255, 1, 37)]   # lanes 96..108: padding
     ctx = np.zeros((n_segs,), np.int32)
     for si, lane, n, start in spans:
         seg[lane:lane + n] = si
@@ -670,12 +696,14 @@ def serve_bf16(torch):
             f"(wgmma variant {packed_tc}), want {want_packed}: one "
             f"tensor-core launch a layer for each of "
             f"{stats['packed_chunks']} packed chunks")
+    rider_paged = cfg.n_layers * stats["rider_chunks"]
     if not (paged_tc == launches["paged_attention"] and
-            paged_tc % cfg.n_layers == 0):
+            paged_tc % cfg.n_layers == 0 and stats["rider_chunks"] >= 1):
         raise AssertionError(
             f"bf16: paged launches {launches['paged_attention']} (mma "
-            f"variant {paged_tc}), want every one the mma variant, "
-            f"{cfg.n_layers} (one a layer) per decode step")
+            f"variant {paged_tc}) with {stats['rider_chunks']} rider "
+            f"chunks, want every one the mma variant, {cfg.n_layers} (one "
+            f"a layer) per decode step and per packed chunk with riders")
     ttft = [hnd.ttft() for hnd in handles]
     itl = [g for hnd in handles for g in hnd.itl()]
     summary = {
@@ -689,7 +717,10 @@ def serve_bf16(torch):
         "steps": stats["steps"], "packed_chunks": stats["packed_chunks"],
         "launches": launches, "packed_wgmma_launches": packed_tc,
         "paged_mma_launches": paged_tc,
-        "decode_steps": paged_tc // cfg.n_layers}
+        "paged_launches_decode_steps": paged_tc - rider_paged,
+        "paged_launches_riders": rider_paged,
+        "decode_steps": (paged_tc - rider_paged) // cfg.n_layers,
+        "rider_chunks": stats["rider_chunks"]}
     return summary, launches
 
 
@@ -932,14 +963,16 @@ LANE_OPS = ("x", "rms_norm", "q_proj", "k_proj", "v_proj", "attention",
             "o_proj", "ffn")
 
 
-def traced_layers(shard, rec):
+def traced_layers(shard, rec, keep=lambda x: True):
     """A copy of the shard's ``_layers`` loop, op for op, that records row
-    0, lane 0 of every op's output in every layer into ``rec``: the
-    decode step's row 0 and the verify chunk's lane 0 (row 0's x_last)."""
+    0, lane 0 of every op's output in every layer into ``rec`` (for the
+    calls whose input ``keep`` accepts): the decode step's row 0, or the
+    verify chunk's lane 0 (row 0's x_last)."""
     from repro_torch.serving import engine as eng
 
     def layers(x, angles, write, attend):
         b, s, _ = x.shape
+        record = keep(x)
         for i, blk in enumerate(shard.params.blocks):
             h = eng.rms_norm(x, blk.ln1)
             q, k, v = eng._qkv(blk.attn, shard.cfg, h)
@@ -954,9 +987,24 @@ def traced_layers(shard, rec):
             f = eng.ffn_apply(blk.ffn, eng.rms_norm(x, blk.ln2))
             x = x + f
             step.update(attention=out, o_proj=o, ffn=f)
-            rec.append({n: t[0, 0].clone() for n, t in step.items()})
+            if record:
+                rec.append({n: t[0, 0].clone() for n, t in step.items()})
         return x
     return layers
+
+
+def first_differing_op(torch, dec, other):
+    """The first op in program order whose output bytes differ between
+    two recorded runs, as (layer, op, max |diff|, max |value|), or
+    None."""
+    for i, (a, b) in enumerate(zip(dec, other)):
+        for name in LANE_OPS:
+            if not torch.equal(a[name], b[name]):
+                return (i, name,
+                        float((a[name].float() - b[name].float()).abs()
+                              .max()),
+                        float(a[name].float().abs().max()))
+    return None
 
 
 def lane_vs_decode(torch, model, params, prompt, conf):
@@ -996,28 +1044,65 @@ def lane_vs_decode(torch, model, params, prompt, conf):
             vk, vv = kv()
     finally:
         session.close()
-    first = None
-    for i, (a, b) in enumerate(zip(dec, ver)):
-        for name in LANE_OPS:
-            if not torch.equal(a[name], b[name]):
-                first = (i, name,
-                         float((a[name].float() - b[name].float()).abs()
-                               .max()),
-                         float(a[name].float().abs().max()))
-                break
-        if first:
-            break
     return (bool(torch.equal(dk, vk) and torch.equal(dv, vv)),
             float((dk.float() - vk.float()).abs().max()),
-            float((dv.float() - vv.float()).abs().max()), first)
+            float((dv.float() - vv.float()).abs().max()),
+            first_differing_op(torch, dec, ver))
 
 
-def lane_note(diag):
+def rider_vs_decode(torch, model, params, prompt, other, conf):
+    """A fused packed step's rider against the dedicated decode step at
+    the same position, token and pages.  ``prompt`` is ingested alone (its
+    first token comes from that chunk) and its row becomes active; the
+    decode step writes position ctx-1; then ``other`` arrives and the next
+    step ingests it as a packed chunk that the row rides, rewriting ctx-1.
+    Both run through :func:`traced_layers`, which in the fused step
+    records the riders' layer loop only (one token a row).  Returns what
+    :func:`lane_vs_decode` returns."""
+    from repro_torch import serving
+    session = serving.serve(model, params, serving.ServingConfig(
+        scheduler="packed", **conf), device=DEVICE, start=False)
+    shard = session.engine.shards[0]
+    dec, rode = [], []
+    try:
+        session.submit(prompt, max_new_tokens=8)
+        with torch.inference_mode():
+            while not shard._active:
+                shard.step()                 # prefill, alone
+            seq = shard._active[0]
+            pos = len(seq.tokens) - 1
+            page = int(seq.page_row[pos // shard.page_size])
+            slot = pos % shard.page_size
+
+            def kv():
+                return (shard.k_pages[:, page, slot].clone(),
+                        shard.v_pages[:, page, slot].clone())
+            shard._layers = traced_layers(shard, dec)
+            shard._decode_batch([seq])       # the decode step's write
+            dk, dv = kv()
+            shard._layers = traced_layers(shard, rode,
+                                          lambda x: x.shape[1] == 1)
+            chunks = shard.rider_chunks
+            session.submit(other, max_new_tokens=1)
+            shard.step()                     # the row rides other's chunk
+            if shard.rider_chunks != chunks + 1:
+                raise AssertionError("rider_vs_decode: the step carried "
+                                     "no rider")
+            vk, vv = kv()
+    finally:
+        session.close()
+    return (bool(torch.equal(dk, vk) and torch.equal(dv, vv)),
+            float((dk.float() - vk.float()).abs().max()),
+            float((dv.float() - vv.float()).abs().max()),
+            first_differing_op(torch, dec, rode))
+
+
+def lane_note(diag, lane="x_last lane"):
     eq, dk, dv, first = diag
     where = "none: every op's bytes are equal" if first is None else (
         f"layer {first[0]} {first[1]} (max |diff| {first[2]:.3g}, max "
         f"|value| {first[3]:.3g})")
-    return (f"x_last lane vs decode step at ctx-1: K/V bytes "
+    return (f"{lane} vs decode step at ctx-1: K/V bytes "
             f"{'equal' if eq else 'differ'} (max |dK| {dk:.3g}, |dV| "
             f"{dv:.3g}); first op whose bytes differ: {where}")
 
@@ -1085,6 +1170,8 @@ def serve_spec_fp32(torch):
                  f"sessions, accept rate {runs[0][1]:.3f}")
     lines.append(lane_note(lane_vs_decode(torch, model, params, prompts[1],
                                           conf)))
+    lines.append(lane_note(rider_vs_decode(torch, model, params, prompts[0],
+                                           prompts[1], conf), "rider"))
     del params
     torch.cuda.empty_cache()
     return lines, launches
@@ -1100,11 +1187,12 @@ def serve_spec_bf16(torch):
     ``logits_fn`` pass over prompt + plain tokens) is below section 2's
     1e-3.  Before the hold each first divergence is printed with its
     margin in bf16 ulps of the top logit; so is plain greedy under
-    ``packed``, whose rows ride prefill chunks through the packed kernel
-    while prompts are still being ingested (spec rows never ride), and
-    :func:`lane_vs_decode` at the first diverging spec stream's position
-    names the first op whose bytes differ between the verify lane and the
-    decode step."""
+    ``packed``, whose rows ride prefill chunks while prompts are still
+    being ingested (spec rows never ride) and run there as the decode
+    step; it is held the same way.  :func:`lane_vs_decode` at the first
+    diverging spec stream's position names the first op whose bytes
+    differ between the verify lane and the decode step, and
+    :func:`rider_vs_decode` the same for a rider."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -1145,17 +1233,33 @@ def serve_spec_bf16(torch):
             f"(chunked; margins from one teacher-forced logits_fn pass): "
             f"{divergence_notes(rows)}")
         lines.append(
-            f"{sched}: 8/8 requests complete in {wall:.2f} s, accept rate "
+            f"spec_k 4 greedy {sched}: 8/8 requests complete in "
+            f"{wall:.2f} s, accept rate "
             f"{totals['accept_rate']:.3f}, {totals['spec_rounds']} rounds, "
             f"verify launches {n_verify} all paged mma (paged by variant "
             f"{counts['paged_by_variant']}); tokens equal to plain bf16 "
             f"greedy {same}/{8 * n_new}, "
             f"{sum(r is None for r in rows)}/8 streams identical")
-    riders, _, _ = serve_run(torch, model, params, prompts, n_new,
-                             scheduler="packed", **conf)
-    say(f"[12 spec bf16] plain greedy packed (decode rows ride prefill "
-        f"chunks) against plain chunked: "
-        f"{divergence_notes(first_divergences(riders, refs, tops))}")
+    riders, totals, counts = serve_run(torch, model, params, prompts,
+                                       n_new, scheduler="packed", **conf)
+    if totals["rider_chunks"] < 1 or \
+            counts["paged_by_variant"].get("mma", 0) != \
+            counts["paged_attention"]:
+        raise AssertionError(
+            f"plain greedy bf16 packed: {totals['rider_chunks']} chunks "
+            f"carried riders, paged launches {counts['paged_by_variant']} "
+            f"(want riders aboard and every paged launch mma)")
+    rows = first_divergences(riders, refs, tops)
+    say(f"[12 spec bf16] plain greedy packed (decode rows ride "
+        f"{totals['rider_chunks']} prefill chunks as the decode step) "
+        f"against plain chunked: {divergence_notes(rows)}")
+    lines.append(
+        f"plain packed: {sum(r is None for r in rows)}/8 streams identical "
+        f"to plain chunked, {totals['rider_chunks']} rider chunks, paged "
+        f"launches {counts['paged_attention']} all mma")
+    diag = rider_vs_decode(torch, model, params, prompts[0], prompts[1],
+                           conf)
+    say(f"[12 spec bf16] {lane_note(diag, 'rider')}")
     i, first = next(((j, r) for _, rows in runs.values()
                      for j, r in enumerate(rows) if r), (0, None))
     at = prompts[i] + plain[i][:first[0] if first else 0]
@@ -1166,10 +1270,11 @@ def serve_spec_bf16(torch):
     say(f"[12 spec bf16] {where}: {lane_note(diag)}")
     for sched, (outs, _) in runs.items():
         held(f"spec greedy bf16 {sched}", outs, refs)
+    held("plain greedy bf16 packed", riders, refs)
     del params
     torch.cuda.empty_cache()
-    return [f"bf16 spec_k 4 greedy {line}; every stream held to plain "
-            f"greedy at 1e-3" for line in lines], launches
+    return [f"bf16 {line}; every stream held to plain chunked greedy at "
+            f"1e-3" for line in lines], launches
 
 
 def hold_streams(label, torch, model, params, prompts, outs, refs,
@@ -1409,28 +1514,31 @@ def serve_migrate_bf16(torch):
 
 
 def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7, b=4, h=32,
-                d=64):
-    """Causal attention at a model's full-sequence shape: B = 4, H = 32,
-    D = 64 (DeepSeek-V2's MLA prefill: B = 2, H = Hkv = 128, D = 192), S
-    tokens, Hkv kv heads.  Returns a row (times only if ``timed``)."""
+                d=64, sk=None, causal=True):
+    """Attention at a model's full-sequence shape: causal, B = 4, H = 32,
+    D = 64, S tokens, Hkv kv heads (DeepSeek-V2's MLA prefill: B = 2,
+    H = Hkv = 128, D = 192; Qwen2-VL: B = 2, H 64, Hkv 8, D 128), or
+    not causal from S queries to ``sk`` keys (Whisper's encoder and
+    cross-attention).  Returns a row (times only if ``timed``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    sk = s if sk is None else sk
     rng = np.random.RandomState(seed + s + hkv)
     dt = getattr(torch, dtype)
     q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(DEVICE, dt) for shape in
-        ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
-    want = fa.flash_attention_plain(q, k, v, causal=True)
+        ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+    label = f"flash_attention[S={s}, Sk={sk}, Hkv={hkv}, D={d}]"
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
     variant = fa.kernel_variant(q.dtype, d, q.device)
     before = fa.launches.of(variant)
-    out = fa.flash_attention(q, k, v, causal=True)
+    out = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     if fa.launches.of(variant) != before + 1:
-        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}, D={d}]: "
-                             f"the {variant} variant did not launch")
+        raise AssertionError(f"{label}: the {variant} variant did not "
+                             f"launch")
     if not torch.isfinite(out.float()).all():
-        raise AssertionError(f"flash_attention[S={s}, Hkv={hkv}, D={d}]: "
-                             f"non-finite")
+        raise AssertionError(f"{label}: non-finite")
     row = {"name": "flash_attention", "route": "cuda", "variant": variant,
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": FLASH_TPU,
@@ -1439,17 +1547,17 @@ def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7, b=4, h=32,
     if not timed:
         return row
     elt = q.element_size()
-    nbytes = (2 * b * s * h * d + 2 * b * s * hkv * d) * elt
-    flops = 4.0 * b * h * d * s * (s + 1) / 2
+    nbytes = (2 * b * s * h * d + 2 * b * sk * hkv * d) * elt
+    flops = 4.0 * b * h * d * (s * (s + 1) / 2 if causal else s * sk)
     qt, kt, vt = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
-    row["ms"] = timer.ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    row["ms"] = timer.ms(lambda: fa.flash_attention(q, k, v, causal=causal))
     row["profiler_ms"] = profiled_ms(
-        torch, timer, lambda: fa.flash_attention(q, k, v, causal=True),
+        torch, timer, lambda: fa.flash_attention(q, k, v, causal=causal),
         FLASH_KERNELS)
     row["plain_ms"] = timer.ms(
-        lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5)
+        lambda: fa.flash_attention_plain(q, k, v, causal=causal), iters=5)
     row["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
     return row
 
@@ -1822,42 +1930,67 @@ def moe_fp32(torch, arch, b=2, s=256, n_new=16):
 
 
 def moe_bf16(torch, arch, b, s=1024, n_new=32):
-    """Phase 14b: bf16 at the config's capacity factor (1.25): prefill
-    through ``logits_fn`` over B prompts of S tokens, then ``n_new``
-    greedy decode steps from a fresh cache fed the prefill's greedy
-    tokens; finite logits; every flash launch the ``wgmma`` variant, one
-    per attention layer; then the prefill's logits against the fp32
-    forward on the same (bf16-rounded) weights: their relative L2
-    distance at most ``LOGITS_RATIO`` times that of the same bf16 forward
-    with attention on the flash kernel's plain version.  Returns
-    (summary, launches)."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
-    from repro_torch.models import build_model
+    """Phase 14b: bf16 at the config's capacity factor (1.25):
+    :func:`bf16_prefill_decode` over B prompts of S tokens, one
+    ``wgmma`` flash launch per attention layer.  Returns (summary,
+    launches)."""
     model, params = moe_model(torch, arch)
     cfg = model.cfg
-    per_forward = MOE_ARCHS[arch][1]
     rng = np.random.RandomState(17)
     tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(
         DEVICE)
+    run = bf16_prefill_decode(torch, model, params, {"tokens": tokens},
+                              MOE_ARCHS[arch][1], n_new)
+    del params
+    torch.cuda.empty_cache()
+    summary = {"model": arch, "layers": cfg.n_layers,
+               "capacity_factor": cfg.capacity_factor, "batch": b,
+               "prompt_tokens": s, "prefill_s": run["prefill_s"],
+               "prefill_tok_s": b * s / run["prefill_s"],
+               "decode_steps": n_new, "decode_s": run["decode_s"],
+               "decode_tok_s": b * n_new / run["decode_s"],
+               "flash_by_variant": run["by_variant"],
+               "logits_vs_fp32": run["vs"]}
+    return summary, {"flash_attention": MOE_ARCHS[arch][1]}
+
+
+def bf16_prefill_decode(torch, model, params, batch, per_forward,
+                        n_new=32):
+    """The bf16 hold of phases 14b and 15b: prefill through ``logits_fn``
+    over ``batch``, then ``n_new`` greedy decode steps from a fresh cache
+    fed the prefill's greedy tokens (Whisper's cross cache from
+    :func:`cross_cache`, not timed); finite logits; every flash launch of
+    the prefill the ``wgmma`` variant, ``per_forward`` of them; then the
+    prefill's logits against the fp32 forward on the same (bf16-rounded)
+    weights: their relative L2 distance at most ``LOGITS_RATIO`` times
+    that of the same bf16 forward with attention on the flash kernel's
+    plain version.  ``params`` end in fp32.  Returns prefill_s, decode_s,
+    by_variant and vs (the distances)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    label = f"{cfg.name} bf16"
+    b = batch["tokens"].shape[0]
     with torch.inference_mode():
         cache = model.init_cache(b, n_new + 1, device=DEVICE)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        logits, _ = model.logits_fn(params, {"tokens": tokens})
+        logits, _ = model.logits_fn(params, batch)
         tok = torch.argmax(logits[:, -1], -1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         finite = bool(torch.isfinite(logits).all())
-        launches = {"flash_attention": fa.launches.count}
         by_variant = dict(fa.launches.by_variant)
         prefill = logits
+        if cfg.family == "encdec":
+            cross_cache(model, params, batch["frames"], cache)
+        torch.cuda.synchronize()
         t2 = time.perf_counter()
         for t in range(n_new):
-            logits, cache = model.decode_step(params, cache, {
-                "tokens": tok[:, None], "cache_len": torch.full(
-                    (b,), t + 1, dtype=torch.int32, device=DEVICE)})
+            logits, cache = model.decode_step(params, cache, family_step(
+                torch, cfg, tok[:, None], t))
             finite = finite and bool(torch.isfinite(logits).all())
             tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
@@ -1867,21 +2000,21 @@ def moe_bf16(torch, arch, b, s=1024, n_new=32):
         kernel = ops.flash_attention
         ops.flash_attention = fa.flash_attention_plain
         try:
-            plain_logits, _ = model.logits_fn(params, {"tokens": tokens})
+            plain_logits, _ = model.logits_fn(params, batch)
         finally:
             ops.flash_attention = kernel
     if not finite:
-        raise AssertionError(f"{arch} bf16: non-finite logits")
-    if not by_variant.get("wgmma", 0) == launches["flash_attention"] == \
+        raise AssertionError(f"{label}: non-finite logits")
+    if not by_variant.get("wgmma", 0) == sum(by_variant.values()) == \
             per_forward:
         raise AssertionError(
-            f"{arch} bf16: flash launches {by_variant}, want "
-            f"{per_forward} wgmma (one per attention layer)")
+            f"{label}: flash launches {by_variant}, want {per_forward} "
+            f"wgmma (one per attention call)")
     with torch.no_grad():
         params.float()                   # in place, one tensor at a time
     with torch.inference_mode():
         want, _ = build_model(cfg.replace(dtype="float32")).logits_fn(
-            params, {"tokens": tokens})
+            params, batch)
         top1 = want.argmax(-1)
         vs = {"kernel": rel_l2(prefill, want),
               "plain": rel_l2(plain_logits, want),
@@ -1890,25 +2023,172 @@ def moe_bf16(torch, arch, b, s=1024, n_new=32):
               "plain_top1": float((plain_logits.argmax(-1) == top1).float()
                                   .mean()),
               "ratio_limit": LOGITS_RATIO}
-    del params, prefill, plain_logits, want
+    del prefill, plain_logits, want
     torch.cuda.empty_cache()
     if not vs["kernel"] <= LOGITS_RATIO * vs["plain"]:
         raise AssertionError(
-            f"{arch} bf16: logits {vs['kernel']:.4g} (relative L2) from "
-            f"the fp32 forward, more than {LOGITS_RATIO} x the "
+            f"{label}: logits {vs['kernel']:.4g} (relative L2) from the "
+            f"fp32 forward, more than {LOGITS_RATIO} x the "
             f"{vs['plain']:.4g} of the same forward with attention on the "
             f"plain version")
-    summary = {"model": arch, "layers": cfg.n_layers,
-               "capacity_factor": cfg.capacity_factor, "batch": b,
-               "prompt_tokens": s, "prefill_s": t1 - t0,
-               "prefill_tok_s": b * s / (t1 - t0), "decode_steps": n_new,
-               "decode_s": t3 - t2, "decode_tok_s": b * n_new / (t3 - t2),
-               "flash_by_variant": by_variant, "logits_vs_fp32": vs}
-    return summary, launches
+    return {"prefill_s": t1 - t0, "decode_s": t3 - t2,
+            "by_variant": by_variant, "vs": vs}
 
+
+# ------------------------------------------------------ phases 15a and 15b
+
+FAMILY_ARCHS = {
+    # arch: (config overrides, flash launches per forward)
+    # 6 encoder self-attentions, 6 decoder self- and 6 cross-attentions
+    "whisper-base": ({}, 18),
+    # 80 layers (72 B parameters) do not fit one 80 GB card: 8 layers at
+    # published widths, 9.5 B parameters (19 GB in bf16, 38 GB in fp32)
+    "qwen2-vl-72b": ({"n_layers": 8}, 8),
+}
+
+
+def family_model(torch, arch, **over):
+    """Whisper-base or Qwen2-VL at published widths with seeded weights
+    on the card (``FAMILY_ARCHS``' depth cut, then ``over``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).replace(**FAMILY_ARCHS[arch][0], **over)
+    model = build_model(cfg)
+    return model, model.init(seed=0, device=DEVICE)
+
+
+def cross_cache(model, params, frames, cache):
+    """Each Whisper decoder layer's cross K/V of the port's own encoder
+    memory, written into ``cache`` (the reference leaves these entries
+    to its callers too)."""
+    cfg = model.cfg
+    memory = model._encode(params, frames)
+    b, s, _ = memory.shape
+    for i, blk in enumerate(params.dec_blocks):
+        cache["cross_k"][i] = (memory @ blk.cross.wk).reshape(
+            b, s, cfg.n_heads, cfg.head_dim)
+        cache["cross_v"][i] = (memory @ blk.cross.wv).reshape(
+            b, s, cfg.n_heads, cfg.head_dim)
+    return cache
+
+
+def family_inputs(torch, cfg, b, s, seed, n_patches=0):
+    """A forward's batch: Whisper enc_seq frames and S tokens; Qwen2-VL S
+    tokens, the first ``n_patches`` of them patch embeddings on a square
+    grid at t = 0 (M-RoPE (0, h, w)) and the text after them at
+    side + i on all three axes.  Frames and patches are made in the
+    model's dtype, so an fp32 model reads the same values."""
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, cfg.dtype)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (b, s - n_patches))).to(DEVICE)
+    if cfg.family == "encdec":
+        return {"tokens": tokens, "frames": torch.from_numpy(
+            rng.standard_normal((b, cfg.enc_seq, cfg.d_model)).astype(
+                np.float32)).to(DEVICE, dt)}
+    side = math.isqrt(n_patches)
+    grid = np.stack([np.zeros(n_patches), np.arange(n_patches) // side,
+                     np.arange(n_patches) % side], -1)
+    text = np.repeat((side + np.arange(s - n_patches))[:, None], 3, -1)
+    thw = np.concatenate([grid, text]).astype(np.int64)
+    return {"tokens": tokens,
+            "patch_embeds": torch.from_numpy(rng.standard_normal(
+                (b, n_patches, cfg.vision_embed_dim)).astype(np.float32))
+            .to(DEVICE, dt),
+            "positions_thw": torch.from_numpy(thw).to(DEVICE)[None]
+            .expand(b, s, 3)}
+
+
+def family_step(torch, cfg, tokens, t):
+    """The decode batch of position ``t`` (Qwen2-VL: t = h = w = t)."""
+    b = tokens.shape[0]
+    batch = {"tokens": tokens, "cache_len": torch.full(
+        (b,), t + 1, dtype=torch.int32, device=DEVICE)}
+    if cfg.family == "vlm":
+        batch["positions_thw"] = torch.full((b, 1, 3), t, device=DEVICE)
+    return batch
+
+
+def family_fp32(torch, arch, b=2, s=128):
+    """Phase 15a: fp32, ``logits_fn`` over B sequences of S tokens
+    (Whisper: against B x enc_seq frames; Qwen2-VL: text at t = h = w = i)
+    held against token-by-token ``decode_step`` at every position (rtol =
+    atol = 2e-3; Whisper's cross cache from :func:`cross_cache`); every
+    flash launch of the forward the ``fma`` variant, 18 (Whisper) and 8
+    (Qwen2-VL) per forward.  Returns (line, launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    model, params = family_model(torch, arch, dtype="float32")
+    cfg = model.cfg
+    per_forward = FAMILY_ARCHS[arch][1]
+    batch = family_inputs(torch, cfg, b, s, seed=15)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        reset_launches()
+        full, _ = model.logits_fn(params, batch)
+        torch.cuda.synchronize()
+        if not fa.launches.count == fa.launches.of("fma") == per_forward:
+            raise AssertionError(
+                f"{arch} fp32: flash launches per forward "
+                f"{fa.launches.by_variant}, want {per_forward} fma")
+        cache = model.init_cache(b, s, device=DEVICE)
+        if cfg.family == "encdec":
+            cross_cache(model, params, batch["frames"], cache)
+        dec = []
+        for t in range(s):
+            logits, cache = model.decode_step(params, cache, family_step(
+                torch, cfg, batch["tokens"][:, t:t + 1], t))
+            dec.append(logits)
+        err = close_enough(torch.stack(dec, 1), full, MODEL_TOL)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del params, cache, full, dec
+    torch.cuda.empty_cache()
+    return (f"{arch} ({cfg.n_layers} layers, d {cfg.d_model}, H "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, D {cfg.head_dim}): logits_fn "
+            f"(B={b}, S={s}"
+            f"{f', {cfg.enc_seq} frames' if cfg.family == 'encdec' else ''}"
+            f") vs decode_step at every position max_abs_err {err:.3g} "
+            f"(tol {MODEL_TOL}); flash launches per forward {per_forward} "
+            f"fma; {wall:.1f} s"), {"flash_attention": per_forward}
+
+
+def family_bf16(torch, arch, b, s, n_patches=0, n_new=32):
+    """Phase 15b: :func:`bf16_prefill_decode` over Whisper's B x enc_seq
+    frames and S tokens, or Qwen2-VL's S positions of which ``n_patches``
+    are patch embeddings; 18 and 8 ``wgmma`` flash launches a forward.
+    Returns (summary, launches)."""
+    model, params = family_model(torch, arch)
+    cfg = model.cfg
+    per_forward = FAMILY_ARCHS[arch][1]
+    batch = family_inputs(torch, cfg, b, s, seed=16, n_patches=n_patches)
+    run = bf16_prefill_decode(torch, model, params, batch, per_forward,
+                              n_new)
+    del params
+    torch.cuda.empty_cache()
+    summary = {"model": arch, "layers": cfg.n_layers, "batch": b,
+               "tokens": s, "patches": n_patches,
+               "frames": cfg.enc_seq if cfg.family == "encdec" else 0,
+               "prefill_s": run["prefill_s"], "decode_steps": n_new,
+               "decode_ms_per_step": run["decode_s"] / n_new * 1e3,
+               "flash_by_variant": run["by_variant"],
+               "logits_vs_fp32": run["vs"]}
+    return summary, {"flash_attention": per_forward}
+
+
+# phase 7's rows at the models' own attention shapes: (Hkv, S, shape)
+FLASH_MODEL_CASES = [
+    # DeepSeek-V2's MLA prefill (D 192 = nope 128 + rope 64)
+    (128, 1024, dict(b=2, h=128, d=192, seed=19)),
+    # Whisper-base's encoder (enc_seq 1500 = 23 x 64 + 28) and its
+    # cross-attention from the 448-token text context
+    (8, 1500, dict(b=4, h=8, causal=False)),
+    (8, 448, dict(b=4, h=8, sk=1500, causal=False)),
+    # Qwen2-VL-72B's text backbone
+    (8, 1024, dict(b=2, h=64, d=128)),
+]
 
 PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
-          "13b", "13c", "14a", "14b")
+          "13b", "13c", "14a", "14b", "15a", "15b")
 
 
 def parse_only(argv):
@@ -2012,16 +2292,19 @@ def main(argv) -> int:
 
     flash_cases = [(dtype, hkv, s, {}) for dtype in ("float32", "bfloat16")
                    for hkv in (32, 4) for s in (1024, 1000)] + [
-        (dtype, 128, 1024, dict(b=2, h=128, d=192, seed=19))
-        for dtype in ("float32", "bfloat16")]
+        (dtype, hkv, s, shape) for dtype in ("float32", "bfloat16")
+        for hkv, s, shape in FLASH_MODEL_CASES]
     for dtype, hkv, s, shape in flash_cases if on("7") else ():
         t0 = time.perf_counter()
-        d = shape.get("d", 64)
-        row = phase_flash(torch, timer, dtype, s, hkv, timed=s == 1024,
-                          **shape)
-        kernels[("flash", dtype, hkv, s, d)] = row
+        row = phase_flash(torch, timer, dtype, s, hkv,
+                          timed=s in (1024, 1500, 448), **shape)
+        kernels[("flash", dtype, hkv, s, shape.get("d", 64),
+                 shape.get("sk", s))] = row
+        shown = " ".join(f"{k}={shape[k]}" for k in ("b", "h", "d", "sk")
+                         if k in shape)
         say(f"[7 flash {dtype} S={s} Hkv={hkv}"
-            f"{' B=2 H=128 D=192' if d == 192 else ''}] variant "
+            f"{' ' + shown if shown else ''}"
+            f"{' full' if not shape.get('causal', True) else ''}] variant "
             f"{row['variant']} max_abs_err {row['max_abs_err']:.3g}" + (
                 f"; ms {row['ms']:.4f} profiler "
                 f"{fmt_ms(row['profiler_ms'])} plain {row['plain_ms']:.4f} "
@@ -2104,12 +2387,25 @@ def main(argv) -> int:
         say(f"[14b moe bf16] {json.dumps(summary)} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
 
+    for arch in FAMILY_ARCHS if on("15a") else ():
+        line, path_launches = family_fp32(torch, arch)
+        add(path_launches)
+        say(f"[15a family fp32] {line}")
+    for arch, b, s, n_patches in (("whisper-base", 4, 448, 0),
+                                  ("qwen2-vl-72b", 2, 1024, 256)) \
+            if on("15b") else ():
+        t0 = time.perf_counter()
+        summary, path_launches = family_bf16(torch, arch, b, s, n_patches)
+        add(path_launches)
+        say(f"[15b family bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+
     if only is None:
         table = []
         for key, name in ((("paged", "bfloat16"), "paged_attention"),
                           (("packed", "bfloat16", 8),
                            "packed_prefill_attention"),
-                          (("flash", "bfloat16", 32, 1024, 64),
+                          (("flash", "bfloat16", 32, 1024, 64, 1024),
                            "flash_attention"),
                           (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
             row = {k: v for k, v in kernels[key].items()

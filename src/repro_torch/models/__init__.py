@@ -1,5 +1,6 @@
-"""Model zoo of the torch port: the dense and MoE / MLA decoders
-(``dense``, ``moe``), Mamba2 (``ssm``) and Zamba2 (``hybrid``)."""
+"""Model zoo of the torch port: the dense, MoE / MLA and Qwen2-VL decoders
+(``dense``, ``moe``, ``vlm``), Mamba2 (``ssm``), Zamba2 (``hybrid``) and
+the Whisper encoder-decoder (``encdec``)."""
 
 from .params import from_jax_params
 from .registry import build_model

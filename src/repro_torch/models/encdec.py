@@ -1,0 +1,151 @@
+"""Whisper-style encoder-decoder, ported from the JAX package's
+``models/encdec.py``.
+
+The conv audio frontend is a stub there too: the encoder takes
+precomputed frame embeddings (B, enc_seq, d_model).  Positions are
+sinusoidal in both stacks (the reference's deviation from Whisper's
+learned decoder positions).  Blocks are pre-LN with LayerNorm (fp32
+inside, population variance), attention has as many kv heads as heads,
+and the FFN is a tanh-GELU MLP with biases.
+
+Every full-sequence attention goes through the flash kernel
+(``layers.blockwise_attention``): the encoder's self-attention
+(non-causal, Sq = Sk = enc_seq), the decoder's causal self-attention and
+its cross-attention from T queries to the enc_seq memory keys
+(non-causal, Sq != Sk).  The decode step runs the plain
+``decode_attention`` for self and cross, as the reference does (it has no
+kernel there).
+
+The decode cache is ``{"k", "v"}`` (dec_layers, B, max_len, H, D) and
+``{"cross_k", "cross_v"}`` (dec_layers, B, enc_seq, H, D), updated in
+place.  As in the reference, nothing here fills the cross entries: the
+caller writes each decoder layer's ``memory @ cross.wk`` / ``wv`` there."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .layers import (
+    blockwise_attention,
+    decode_attention,
+    gelu_mlp,
+    layer_norm,
+    sinusoidal_positions,
+    update_kv_cache,
+)
+from .params import DTYPES, WhisperParams, init_whisper_params, \
+    resolve_device
+
+
+def _mha(p, cfg, xq, xkv, causal: bool):
+    """Multi-head attention of xq (B,Sq,d) over xkv (B,Sk,d) through the
+    flash kernel; ``p`` an AttentionParams."""
+    b, s, _ = xq.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (xq @ p.wq).reshape(b, s, h, hd)
+    k = (xkv @ p.wk).reshape(b, xkv.shape[1], h, hd)
+    v = (xkv @ p.wv).reshape(b, xkv.shape[1], h, hd)
+    out = blockwise_attention(q, k, v, causal=causal)
+    return out.reshape(b, s, -1) @ p.wo
+
+
+def _ffn(p, x):
+    return gelu_mlp(x, p.wi, p.bi, p.wo, p.bo)
+
+
+class WhisperEncDec:
+    """Whisper backbone: ``logits_fn`` encodes ``frames`` and decodes
+    ``tokens`` in one pass; ``decode_step`` feeds one token per sequence
+    against the self cache and the caller's cross cache."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.dtype = DTYPES[cfg.dtype]
+
+    def init(self, seed: int = 0, device=None) -> WhisperParams:
+        """Seeded weights on ``device`` (``None`` = the card)."""
+        return init_whisper_params(self.cfg, seed, device)
+
+    # -------------------------------------------------------------- paths
+    def _encode(self, params: WhisperParams, frames):
+        """frames (B, enc_seq, d) → the memory (B, enc_seq, d): sinusoidal
+        positions, pre-LN blocks with non-causal self-attention, the
+        final LayerNorm."""
+        cfg = self.cfg
+        x = frames.to(self.dtype) + sinusoidal_positions(
+            frames.shape[1], cfg.d_model, frames.device).to(self.dtype)
+        for blk in params.enc_blocks:
+            a = layer_norm(x, blk.ln1_s, blk.ln1_b)
+            x = x + _mha(blk.attn, cfg, a, a, causal=False)
+            x = x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+        return layer_norm(x, params.enc_norm_s, params.enc_norm_b)
+
+    def logits_fn(self, params: WhisperParams, batch):
+        """batch: frames (B, enc_seq, d), tokens (B, T) → (logits
+        (B, T, V), tokens)."""
+        cfg = self.cfg
+        memory = self._encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        x = params.embed[tokens.long()]
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)
+        for blk in params.dec_blocks:
+            a = layer_norm(x, blk.ln1_s, blk.ln1_b)
+            x = x + _mha(blk.attn, cfg, a, a, causal=True)
+            a = layer_norm(x, blk.ln3_s, blk.ln3_b)
+            x = x + _mha(blk.cross, cfg, a, memory, causal=False)
+            x = x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+        x = layer_norm(x, params.dec_norm_s, params.dec_norm_b)
+        return x @ params.lm_head, tokens
+
+    # ------------------------------------------------------------- decode
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """Zeroed cache: k / v (dec_layers, B, max_len, H, D) and cross_k /
+        cross_v (dec_layers, B, enc_seq, H, D)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        heads = (cfg.n_heads, cfg.head_dim)
+        shapes = {"k": max_len, "v": max_len, "cross_k": cfg.enc_seq,
+                  "cross_v": cfg.enc_seq}
+        return {name: torch.zeros((cfg.dec_layers, batch_size, s) + heads,
+                                  dtype=self.dtype, device=dev)
+                for name, s in shapes.items()}
+
+    def decode_step(self, params: WhisperParams, cache, batch):
+        """One token for every sequence.  batch: tokens (B,1), cache_len
+        (B,) including the new token.  Returns (logits (B,V), cache); the
+        self cache is updated in place, the cross cache only read."""
+        cfg = self.cfg
+        cache_len = batch["cache_len"]
+        b = batch["tokens"].shape[0]
+        h, hd = cfg.n_heads, cfg.head_dim
+        x = params.embed[batch["tokens"].long()]             # (B,1,d)
+        # the sinusoidal position of the new token, in fp32
+        pos = (cache_len - 1).float()[:, None]
+        i = torch.arange(cfg.d_model // 2, dtype=torch.float32,
+                         device=x.device)[None, :]
+        ang = pos / (10000.0 ** (2 * i / cfg.d_model))
+        x = x + torch.cat([torch.sin(ang), torch.cos(ang)],
+                          dim=-1)[:, None, :].to(x.dtype)
+        full = torch.full((b,), cache["cross_k"].shape[2],
+                          dtype=cache_len.dtype, device=x.device)
+        for i, blk in enumerate(params.dec_blocks):
+            a = layer_norm(x, blk.ln1_s, blk.ln1_b)
+            q = (a @ blk.attn.wq).reshape(b, 1, h, hd)
+            k = (a @ blk.attn.wk).reshape(b, 1, h, hd)
+            v = (a @ blk.attn.wv).reshape(b, 1, h, hd)
+            kc, vc = cache["k"][i], cache["v"][i]
+            update_kv_cache(kc, vc, k, v, cache_len - 1)
+            out = decode_attention(q[:, 0], kc, vc, cache_len)
+            x = x + out.reshape(b, 1, -1) @ blk.attn.wo
+            a = layer_norm(x, blk.ln3_s, blk.ln3_b)
+            q = (a @ blk.cross.wq).reshape(b, 1, h, hd)
+            out = decode_attention(q[:, 0], cache["cross_k"][i],
+                                   cache["cross_v"][i], full)
+            x = x + out.reshape(b, 1, -1) @ blk.cross.wo
+            x = x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+        x = layer_norm(x, params.dec_norm_s, params.dec_norm_b)
+        return x[:, 0] @ params.lm_head, cache

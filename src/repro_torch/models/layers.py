@@ -7,6 +7,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 
@@ -20,6 +21,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (out * scale.float()).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in fp32 inside with the population variance (the
+    reference's ``jnp.var``), cast back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 # ----------------------------------------------------------------- rotary
 
 
@@ -30,6 +41,37 @@ def rope_angles(positions, head_dim: int, theta: float = 10000.0):
                         device=positions.device) / half
     inv_freq = 1.0 / (theta ** exps)
     return positions[..., None].float() * inv_freq
+
+
+def mrope_angles(positions_thw, head_dim: int, sections,
+                 theta: float = 1000000.0):
+    """Qwen2-VL M-RoPE: positions (..., S, 3) as [t, h, w] → (..., S,
+    head_dim//2) fp32 angles; frequency slot j takes its position from
+    the axis of the section it lies in (``sections`` sum to
+    head_dim//2)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {half}")
+    dev = positions_thw.device
+    exps = torch.arange(0, half, dtype=torch.float32, device=dev) / half
+    inv_freq = 1.0 / (theta ** exps)
+    section_ids = torch.cat([torch.full((n,), axis, dtype=torch.long,
+                                        device=dev)
+                             for axis, n in enumerate(sections)])
+    pos = positions_thw.float()
+    pos_sel = torch.gather(
+        pos, -1, section_ids.expand(pos.shape[:-1] + (half,)))
+    return pos_sel * inv_freq
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device=None):
+    """(seq_len, dim) fp32 ``[sin | cos]`` halves side by side (not
+    interleaved), frequency ``10000 ** (-2 i / dim)``."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / (10000.0 ** (2 * i / dim))
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def apply_rope(x, angles):
@@ -80,3 +122,13 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     k_cache[bidx, pos.long()] = k_new[:, 0].to(k_cache.dtype)
     v_cache[bidx, pos.long()] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+# ------------------------------------------------------------------ MLP
+
+
+def gelu_mlp(x, wi, bi, wo, bo):
+    """GELU MLP with biases.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, so this is ``approximate="tanh"`` (torch's default, the
+    erf form, differs by up to ~1e-3)."""
+    return F.gelu(x @ wi + bi, approximate="tanh") @ wo + bo

@@ -1,14 +1,15 @@
 """Parameters of the ported model families (dense, MoE and MLA decoders,
-Mamba2, Zamba2): ``nn.Module`` containers, seeded init on a device, and
-the bridge from the JAX package's parameter tree.
+the Qwen2-VL decoder, Mamba2, Zamba2, the Whisper encoder-decoder):
+``nn.Module`` containers, seeded init on a device, and the bridge from the
+JAX package's parameter tree.
 
 Weights keep the JAX layout ``(in, out)`` (``x @ W``), so the bridge is a
 copy, never a transpose.  Init follows the reference's scheme
 (``repro/models/params.py``): fan-in scaled truncated normal on [-2, 2]
-(scale ``1 / sqrt(shape[0])``), norms at one, and the Mamba2 block's
-``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip`` at zero.  Draws come from a
-``torch.Generator``, so the numbers differ from JAX's for the same seed;
-the tests bridge the JAX init instead."""
+(scale ``1 / sqrt(shape[0])``), norms at one, biases at zero, and the
+Mamba2 block's ``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip`` at zero.
+Draws come from a ``torch.Generator``, so the numbers differ from JAX's
+for the same seed; the tests bridge the JAX init instead."""
 
 from __future__ import annotations
 
@@ -105,15 +106,20 @@ class DecoderParams(nn.Module):
     :class:`BlockParams` per layer (the reference stacks them on a leading
     ``L`` axis for ``lax.scan``; here they are a list), and before them
     the ``first_dense_layers`` prefix as ``head_blocks`` (the reference's
-    ``head_block_{i}`` subtrees)."""
+    ``head_block_{i}`` subtrees).  A ``vlm`` decoder also has
+    ``vision_proj`` (vision_embed_dim, d), the projection of the patch
+    embeddings into the text stream (None for the other families)."""
 
-    def __init__(self, embed, final_norm, lm_head, blocks, head_blocks=()):
+    def __init__(self, embed, final_norm, lm_head, blocks, head_blocks=(),
+                 vision_proj=None):
         super().__init__()
         self.embed = _frozen(embed)
         self.final_norm = _frozen(final_norm)
         self.lm_head = _frozen(lm_head)
         self.head_blocks = nn.ModuleList(head_blocks)
         self.blocks = nn.ModuleList(blocks)
+        self.vision_proj = None if vision_proj is None \
+            else _frozen(vision_proj)
 
 
 class MambaBlockParams(nn.Module):
@@ -144,6 +150,61 @@ class Zamba2Params(Mamba2Params):
                  blocks):
         super().__init__(embed, final_norm, lm_head, blocks)
         self.shared = shared
+
+
+class GeluFFNParams(nn.Module):
+    """Whisper's FFN: wi (d, F), bi (F,), wo (F, d), bo (d,)."""
+
+    NAMES = ("wi", "bi", "wo", "bo")
+
+    def __init__(self, **leaves):
+        super().__init__()
+        for name in self.NAMES:
+            setattr(self, name, _frozen(leaves[name]))
+
+
+class EncoderBlockParams(nn.Module):
+    """One Whisper encoder block (pre-LN): ln1_s / ln1_b and ln2_s / ln2_b
+    (d,), ``attn`` an :class:`AttentionParams` (H = Hkv: wq / wk / wv
+    (d, H D), wo (H D, d)), ``ffn`` a :class:`GeluFFNParams`."""
+
+    NORMS = ("ln1_s", "ln1_b", "ln2_s", "ln2_b")
+
+    def __init__(self, attn, ffn, **norms):
+        super().__init__()
+        for name in self.NORMS:
+            setattr(self, name, _frozen(norms[name]))
+        self.attn, self.ffn = attn, ffn
+
+
+class DecoderBlockParams(EncoderBlockParams):
+    """One Whisper decoder block: an encoder block's leaves, plus ln3_s /
+    ln3_b (d,) before the cross-attention ``cross`` (an
+    :class:`AttentionParams` whose wk / wv read the encoder's memory)."""
+
+    NORMS = EncoderBlockParams.NORMS + ("ln3_s", "ln3_b")
+
+    def __init__(self, attn, ffn, cross, **norms):
+        super().__init__(attn, ffn, **norms)
+        self.cross = cross
+
+
+class WhisperParams(nn.Module):
+    """embed (V, d), an untied lm_head (d, V), the encoder's and the
+    decoder's final LayerNorms enc_norm_s / enc_norm_b and dec_norm_s /
+    dec_norm_b (d,), and one block module per layer in ``enc_blocks``
+    and ``dec_blocks`` (the reference stacks each on a leading ``L``
+    axis)."""
+
+    OUTER = ("embed", "lm_head", "enc_norm_s", "enc_norm_b", "dec_norm_s",
+             "dec_norm_b")
+
+    def __init__(self, enc_blocks, dec_blocks, **outer):
+        super().__init__()
+        for name in self.OUTER:
+            setattr(self, name, _frozen(outer[name]))
+        self.enc_blocks = nn.ModuleList(enc_blocks)
+        self.dec_blocks = nn.ModuleList(dec_blocks)
 
 
 class _Init:
@@ -248,16 +309,53 @@ def _init_outer(ini: _Init, cfg):
 
 
 def init_params(cfg, seed: int = 0, device=None) -> DecoderParams:
-    """Seeded init of a dense, MoE or MLA decoder at ``cfg``'s widths, on
-    ``device`` (``None`` = the card): the ``first_dense_layers`` head
-    blocks, then the tail."""
+    """Seeded init of a dense, MoE, MLA or ``vlm`` decoder at ``cfg``'s
+    widths, on ``device`` (``None`` = the card): the ``first_dense_layers``
+    head blocks, then the tail (and a ``vlm`` decoder's ``vision_proj``)."""
     ini = _Init(seed, DTYPES[cfg.dtype], resolve_device(device))
     embed, final_norm, lm_head = _init_outer(ini, cfg)
+    vision_proj = ini.normal(cfg.vision_embed_dim, cfg.d_model) \
+        if cfg.family == "vlm" else None
     kinds = layer_kinds(cfg)
     blocks = [_init_block(ini, cfg, kind) for kind in kinds]
     n_head = cfg.first_dense_layers
     return DecoderParams(embed, final_norm, lm_head, blocks[n_head:],
-                         blocks[:n_head])
+                         blocks[:n_head], vision_proj)
+
+
+def _init_whisper_block(ini: _Init, cfg, decoder: bool):
+    d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+
+    def attn():
+        return AttentionParams(ini.normal(d, hd), ini.normal(d, hd),
+                               ini.normal(d, hd), ini.normal(hd, d))
+    norms = {}
+    for name in (DecoderBlockParams if decoder
+                 else EncoderBlockParams).NORMS:
+        norms[name] = ini.ones(d) if name.endswith("_s") else ini.zeros(d)
+    self_attn = attn()
+    ffn = GeluFFNParams(wi=ini.normal(d, cfg.d_ff), bi=ini.zeros(cfg.d_ff),
+                        wo=ini.normal(cfg.d_ff, d), bo=ini.zeros(d))
+    if decoder:
+        return DecoderBlockParams(self_attn, ffn, attn(), **norms)
+    return EncoderBlockParams(self_attn, ffn, **norms)
+
+
+def init_whisper_params(cfg, seed: int = 0, device=None) -> WhisperParams:
+    """Seeded init of a Whisper encoder-decoder at ``cfg``'s widths, on
+    ``device`` (``None`` = the card): LayerNorm scales at one and every
+    bias at zero, as the reference."""
+    ini = _Init(seed, DTYPES[cfg.dtype], resolve_device(device))
+    d = cfg.d_model
+    outer = dict(embed=ini.normal(cfg.vocab_size, d),
+                 lm_head=ini.normal(d, cfg.vocab_size),
+                 enc_norm_s=ini.ones(d), enc_norm_b=ini.zeros(d),
+                 dec_norm_s=ini.ones(d), dec_norm_b=ini.zeros(d))
+    enc = [_init_whisper_block(ini, cfg, False)
+           for _ in range(cfg.enc_layers)]
+    dec = [_init_whisper_block(ini, cfg, True)
+           for _ in range(cfg.dec_layers)]
+    return WhisperParams(enc, dec, **outer)
 
 
 def init_mamba2_params(cfg, seed: int = 0, device=None) -> Mamba2Params:
@@ -311,26 +409,52 @@ def _bridge_block(blk, cfg, dev, kind: str = "dense") -> BlockParams:
                        attn, ffn)
 
 
+def _bridge_whisper(tree, cfg, dev) -> WhisperParams:
+    def attn(a):
+        return AttentionParams(*(_tensor(a[n], dev)
+                                 for n in ("wq", "wk", "wv", "wo")))
+
+    def block(b, cls):
+        kw = {n: _tensor(b[n], dev) for n in cls.NORMS}
+        ffn = GeluFFNParams(**{n: _tensor(b["ffn"][n], dev)
+                               for n in GeluFFNParams.NAMES})
+        if cls is DecoderBlockParams:
+            kw["cross"] = attn(b["cross"])
+        return cls(attn(b["attn"]), ffn, **kw)
+
+    return WhisperParams(
+        [block(_layer(tree["enc_blocks"], i), EncoderBlockParams)
+         for i in range(cfg.enc_layers)],
+        [block(_layer(tree["dec_blocks"], i), DecoderBlockParams)
+         for i in range(cfg.dec_layers)],
+        **{n: _tensor(tree[n], dev) for n in WhisperParams.OUTER})
+
+
 def from_jax_params(tree, cfg, device):
     """Bridge the JAX package's parameter tree of a ``dense``, ``moe``
-    (MoE, and MLA + MoE), ``ssm`` (Mamba2) or ``hybrid`` (Zamba2) model
-    (leaves already converted to numpy, e.g.
-    ``jax.tree_util.tree_map(np.asarray, params)``) onto ``device``.  The
-    stacked ``blocks`` leaves (leading ``L`` axis) are split into
-    per-layer modules, the ``head_block_{i}`` subtrees become the head
-    blocks; Zamba2's ``shared`` block is taken as it is."""
+    (MoE, and MLA + MoE), ``vlm`` (Qwen2-VL), ``ssm`` (Mamba2), ``hybrid``
+    (Zamba2) or ``encdec`` (Whisper) model (leaves already converted to
+    numpy, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) onto
+    ``device``.  The stacked ``blocks`` leaves (Whisper: ``enc_blocks``
+    and ``dec_blocks``; leading ``L`` axis) are split into per-layer
+    modules, the ``head_block_{i}`` subtrees become the head blocks;
+    Zamba2's ``shared`` block is taken as it is."""
     dev = torch.device(device)
+    if cfg.family == "encdec":
+        return _bridge_whisper(tree, cfg, dev)
     outer = (_tensor(tree["embed"], dev), _tensor(tree["final_norm"], dev),
              _tensor(tree["lm_head"], dev))
     blk = tree["blocks"]
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         kinds = layer_kinds(cfg)
         n_head = cfg.first_dense_layers
         head = [_bridge_block(tree[f"head_block_{i}"], cfg, dev, kinds[i])
                 for i in range(n_head)]
+        vision_proj = _tensor(tree["vision_proj"], dev) \
+            if cfg.family == "vlm" else None
         return DecoderParams(*outer, [
             _bridge_block(_layer(blk, i), cfg, dev, kinds[-1])
-            for i in range(cfg.n_layers - n_head)], head)
+            for i in range(cfg.n_layers - n_head)], head, vision_proj)
     mamba = [MambaBlockParams(**{n: _tensor(blk[n][i], dev)
                                  for n in MambaBlockParams.NAMES})
              for i in range(cfg.n_layers)]
@@ -339,5 +463,4 @@ def from_jax_params(tree, cfg, device):
     if cfg.family == "hybrid":
         return Zamba2Params(*outer, _bridge_block(tree["shared"], cfg, dev),
                             mamba)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to torch yet (ROADMAP A.10)")
+    raise ValueError(f"unknown model family {cfg.family!r}")

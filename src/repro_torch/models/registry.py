@@ -4,6 +4,7 @@ derived from a served target."""
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
+from .encdec import WhisperEncDec
 from .hybrid import Zamba2LM
 from .params import DecoderParams
 from .ssm import Mamba2LM
@@ -11,16 +12,15 @@ from .transformer import DecoderLM
 
 
 def build_model(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         return Mamba2LM(cfg)
     if cfg.family == "hybrid":
         return Zamba2LM(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to torch yet (ROADMAP A.10: "
-        f"other model families); the port builds 'dense', 'moe', 'ssm' "
-        f"and 'hybrid' models")
+    if cfg.family == "encdec":
+        return WhisperEncDec(cfg)
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def derive_draft(model, params, spec_draft: str = "auto",

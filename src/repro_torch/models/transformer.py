@@ -1,7 +1,8 @@
-"""Decoder-only LM of the ``dense`` and ``moe`` families (dense llama-style
-blocks, routed MoE FFNs, MLA attention, and a ``first_dense_layers``
-prefix), ported from the JAX package's ``models/transformer.py``.  The
-``vlm`` family is not ported yet.
+"""Decoder-only LM of the ``dense``, ``moe`` and ``vlm`` families (dense
+llama-style blocks, routed MoE FFNs, MLA attention, a
+``first_dense_layers`` prefix, and Qwen2-VL's M-RoPE text backbone fed
+projected patch embeddings), ported from the JAX package's
+``models/transformer.py``.
 
 The model object holds the config and the functions; the weights are a
 :class:`~repro_torch.models.params.DecoderParams` passed to each call, as
@@ -24,6 +25,7 @@ from .layers import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    mrope_angles,
     rms_norm,
     rope_angles,
     update_kv_cache,
@@ -95,15 +97,20 @@ def block_decode(p, cfg, x, cache, i, prefix, cache_len, angles, kind):
 
 
 class DecoderLM:
-    """Dense / MoE / MLA decoder LM (llama-style: RMSNorm, RoPE, GQA,
-    SwiGLU; routed experts; latent attention)."""
+    """Dense / MoE / MLA / VLM decoder LM (llama-style: RMSNorm, RoPE or
+    M-RoPE, GQA, SwiGLU; routed experts; latent attention).
+
+    The ``vlm`` family (Qwen2-VL) takes ``patch_embeds`` (B, S_vis,
+    vision_embed_dim), the vision frontend's output (a stub in the
+    reference too), and ``positions_thw`` (B, S_vis + S_text, 3) in its
+    ``logits_fn`` batch; the projected patches come BEFORE the text and
+    get label -1.  Its ``decode_step`` takes ``positions_thw`` (B, 1, 3)
+    beside ``cache_len``."""
 
     def __init__(self, cfg):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"the torch port's decoder builds the dense and moe "
-                f"families; {cfg.name!r} (family {cfg.family!r}) waits for "
-                f"ROADMAP A.10 (other model families)")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM builds the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
         self.kinds = layer_kinds(cfg)
@@ -121,23 +128,40 @@ class DecoderLM:
             [(blk, self.kinds[-1], "", i)
              for i, blk in enumerate(params.blocks)]
 
-    def _angles(self, positions):
+    def _angles(self, positions, batch):
+        """Rotary angles at ``positions``; a ``vlm`` model reads
+        ``batch["positions_thw"]`` instead (M-RoPE)."""
         cfg = self.cfg
+        if cfg.family == "vlm":
+            return mrope_angles(batch["positions_thw"], cfg.head_dim,
+                                cfg.mrope_sections, cfg.rope_theta)
         if cfg.use_mla:
             return positions         # MLA applies its own decoupled rope
         return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
+    def _embed_inputs(self, params, batch):
+        """→ (x (B,S,d), angles, labels (B,S)): a ``vlm`` batch's
+        projected patches lead the text, labelled -1."""
+        tokens = batch["tokens"]
+        x = params.embed[tokens.long()]
+        labels = tokens
+        if self.cfg.family == "vlm":
+            vis = batch["patch_embeds"].to(x.dtype) @ params.vision_proj
+            x = torch.cat([vis, x], dim=1)
+            labels = torch.cat([torch.full(
+                (tokens.shape[0], vis.shape[1]), -1, dtype=tokens.dtype,
+                device=tokens.device), tokens], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        return x, self._angles(positions, batch), labels
+
     # ------------------------------------------------------------- train
     def logits_fn(self, params: DecoderParams, batch):
         """Full-sequence forward → (logits (B,S,V), labels)."""
-        tokens = batch["tokens"]
-        x = params.embed[tokens.long()]
-        angles = self._angles(torch.arange(tokens.shape[1],
-                                           device=x.device)[None, :])
+        x, angles, labels = self._embed_inputs(params, batch)
         for blk, kind, _, _ in self._layers(params):
             x = block_train(blk, self.cfg, x, angles, kind)
         x = rms_norm(x, params.final_norm)
-        return x @ params.lm_head, tokens
+        return x @ params.lm_head, labels
 
     # ------------------------------------------------------------ decode
     def init_cache(self, batch_size: int, max_len: int,
@@ -165,11 +189,12 @@ class DecoderLM:
 
     def decode_step(self, params: DecoderParams, cache, batch):
         """One token for every sequence.  batch: tokens (B,1), cache_len
-        (B,) including the new token.  Returns (logits (B,V), cache); the
-        cache is updated in place."""
+        (B,) including the new token (and for ``vlm`` positions_thw
+        (B,1,3)).  Returns (logits (B,V), cache); the cache is updated in
+        place."""
         cache_len = batch["cache_len"]
         x = params.embed[batch["tokens"].long()]               # (B,1,d)
-        angles = self._angles((cache_len - 1)[:, None])
+        angles = self._angles((cache_len - 1)[:, None], batch)
         for blk, kind, prefix, i in self._layers(params):
             x = block_decode(blk, self.cfg, x, cache, i, prefix, cache_len,
                              angles, kind)

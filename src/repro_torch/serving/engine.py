@@ -41,6 +41,12 @@ the reference's):
   scheduler always takes the (segments x max_pages) rectangle with its
   power-of-two segment bucket; the reference's kernel-less ragged layout
   (``_paged_step_packed_flat``) is not ported.
+* The fused packed step runs its decode riders as the decode step
+  (products at max_batch rows, ``ops.paged_attention`` with the decode
+  step's split count) beside the prefill chunk, which is C lanes wide;
+  the reference lays each rider into a C + max_batch chunk as a one-lane
+  segment.  A generated position's bytes then do not depend on whether
+  its row rode a prefill chunk.
 * Sampling draws JAX's threefry bits (``kernels/ref.py``), so a seeded
   request samples the tokens the reference engine samples; the sampler and
   the speculative accept rule are plain tensor math on the device, as in
@@ -395,6 +401,9 @@ class _ShardEngine:
         self.prefill_tokens_wasted = 0
         self.packed_chunks = 0
         self.packed_segments = 0
+        # packed chunks that carried decode riders: each runs the riders'
+        # decode step too (one paged launch a layer)
+        self.rider_chunks = 0
         # fault tolerance (DESIGN.md §14): the shard's scheduled faults,
         # its loop heartbeat, and the recovery counters stats() exposes
         self.fault_line = build_fault_line(config.faults, shard_id)
@@ -654,29 +663,23 @@ class _ShardEngine:
                               wr_slot):
         """Ingest ONE packed multi-segment chunk (the ``packed`` scheduler).
 
-        tokens: (L,) — several sequences' prompt slices laid end to end
-        in one fixed-shape chunk (L = prefill_chunk_tokens + max_batch:
-        the C-token prefill budget plus one lane per possible decode
-        rider); seg_ids (L,) says which segment each lane belongs to
-        (-1 = padding) and positions (L,) its absolute position in its OWN
-        sequence.  page_rows (S, max_pages) carries one block-table row per
-        segment (S = the power-of-2 segment bucket; unused rows have
-        seg_ctx 0), seg_ctx (S,) each segment's context end AFTER this
-        chunk.  K/V is written into the pages per layer BEFORE attention
-        reads them, so lanes of the same segment see their earlier
-        same-chunk neighbours through the pages.  Only the valid lanes
-        (wr_lanes, with their page/slot targets) write.
-
-        A decode-batch member fuses in as one more segment holding a
-        single lane: its current token at position ctx-1, emit lane set —
-        the same write/attend/emit path that serves a finishing prompt
-        serves a decode step, so prefill and decode share one call.
+        tokens: (C,) — several sequences' prompt slices laid end to end
+        in one fixed-shape chunk (C = prefill_chunk_tokens); seg_ids (C,)
+        says which segment each lane belongs to (-1 = padding) and
+        positions (C,) its absolute position in its OWN sequence.
+        page_rows (S, max_pages) carries one block-table row per segment
+        (S = the power-of-2 segment bucket; unused rows have seg_ctx 0),
+        seg_ctx (S,) each segment's context end AFTER this chunk.  K/V is
+        written into the pages per layer BEFORE attention reads them, so
+        lanes of the same segment see their earlier same-chunk neighbours
+        through the pages.  Only the valid lanes (wr_lanes, with their
+        page/slot targets) write.
 
         emit_lanes (S,): the lane holding each segment's LAST token (clamped
         into range; rows of non-emitting segments are ignored by the host).
         Returns the (S, V) logits of those lanes."""
         cfg = self.cfg
-        x = self.params.embed[tokens][None]               # (1, L, d)
+        x = self.params.embed[tokens][None]               # (1, C, d)
         angles = rope_angles(positions[None], cfg.head_dim, cfg.rope_theta)
 
         def write(i, k, v):
@@ -1373,52 +1376,53 @@ class _ShardEngine:
     def _advance_packed(self, plan, riders):
         """Execute a whole prefill plan as packed fixed-shape chunks (the
         ``packed`` scheduler): every granted sequence's slice goes into ONE
-        ``(L,)`` chunk with sequence-indicator segment ids, so the chunk
+        ``(C,)`` chunk with sequence-indicator segment ids, so the chunk
         budget buys C tokens of aggregate progress per kernel call instead
         of per sequence.  With chunked-style grants (sum ≤ C, ≤ max_batch
         sequences) one chunk per step suffices; the loop still splits
         defensively if a plan ever overflows C lanes or max_batch
         segments.
 
-        FUSED STEP: ``riders`` is the step's active decode batch — each
-        rider becomes one more segment holding exactly one lane (its
-        current token at position ctx-1, emit lane set), so the step's
-        decode tokens come out of the SAME device call as the prefill
-        chunk.  The lane axis is C + max_batch wide so riders never eat
-        into the prefill token budget (active + prefilling share
-        max_batch, so segments always fit).  Riders ride the FIRST chunk
-        only; returns their (next tokens, logprobs) pair of (n_riders,)
-        arrays, or None when the plan was empty (caller falls back to the
-        dedicated decode batch).
+        FUSED STEP: ``riders`` is the step's active decode batch.  It
+        rides the FIRST chunk: the same step runs the chunk and the
+        riders' decode step (:meth:`_decode_logits`: the decode step's
+        products at max_batch rows, its paged attention with
+        ``decode_splits``) and samples the finishing prompts and the
+        riders in one call, so the step's decode tokens cost no step of
+        their own.  The reference instead lays each rider into the chunk
+        as a one-lane segment; the port's packed kernel and the chunk's
+        products round otherwise than the decode step's, which made a
+        bf16 stream depend on which steps it rode.  Returns the riders'
+        (next tokens, logprobs) pair of (n_riders,) arrays, or None when
+        the plan was empty (caller falls back to the dedicated decode
+        batch).
 
         The segment axis is BUCKETED to the next power of two above the
         actual segment count (1/2/4/.../max_batch): attention cost scales
         with S·max_pages keys in the plain version, so a 1-segment chunk
         must not pay the max_batch-wide rectangle."""
         chunk = self.config.prefill_chunk_tokens
-        lanes_max = chunk + self.max_batch
         n_segs = self.max_batch
         pgsz = self.page_size
         queue = [(seq, grant) for seq, grant in plan if grant > 0]
         rider_toks = None
         first = True
         while queue:
-            toks = np.zeros((lanes_max,), np.int64)
-            segs = np.full((lanes_max,), -1, np.int32)
-            poss = np.zeros((lanes_max,), np.int32)
+            toks = np.zeros((chunk,), np.int64)
+            segs = np.full((chunk,), -1, np.int32)
+            poss = np.zeros((chunk,), np.int32)
             # per-lane write targets (padding lanes write nothing)
-            upd = np.zeros((lanes_max,), np.int64)
-            slot = np.zeros((lanes_max,), np.int64)
+            upd = np.zeros((chunk,), np.int64)
+            slot = np.zeros((chunk,), np.int64)
             rows = np.zeros((n_segs, self.max_pages), np.int32)
             ctxs = np.zeros((n_segs,), np.int32)
-            emit = np.full((n_segs,), lanes_max, np.int32)  # not finishing
+            emit = np.full((n_segs,), chunk, np.int32)  # not finishing
             # the absolute position each emitting segment samples AT (the
             # counter-PRNG coordinate)
             spos = np.zeros((n_segs,), np.int64)
             members = []
             lane = 0
-            budget = len(riders) if first else 0
-            while queue and lane < chunk and len(members) + budget < n_segs:
+            while queue and lane < chunk and len(members) < n_segs:
                 seq, grant = queue.pop(0)
                 take = min(grant, chunk - lane)
                 si = len(members)
@@ -1442,69 +1446,59 @@ class _ShardEngine:
                     # alignment only matters at STEP end (prefix-cache
                     # resume), and the full grant lands within this plan.
                     queue.insert(0, (seq, grant - take))
-            n_riders = 0
-            if first:
-                for seq in riders:
-                    si = len(members) + n_riders
-                    ctx = len(seq.tokens)
-                    toks[lane] = seq.tokens[-1]
-                    segs[lane] = si
-                    poss[lane] = ctx - 1
-                    upd[lane] = seq.page_row[(ctx - 1) // pgsz]
-                    slot[lane] = (ctx - 1) % pgsz
-                    rows[si] = seq.page_row
-                    ctxs[si] = ctx
-                    spos[si] = ctx
-                    emit[si] = lane
-                    n_riders += 1
-                    lane += 1
             self.prefill_chunks += 1
             self.packed_chunks += 1
             self.packed_segments += len(members)
-            self.prefill_tokens_wasted += chunk - (lane - n_riders)
-            total = len(members) + n_riders
+            self.prefill_tokens_wasted += chunk - lane
             self._fault_dispatch()
             # power-of-2 segment bucket: pay for the segments actually
             # present, not max_batch (seg ids are compact, so a prefix
             # slice of the per-segment operands is sufficient)
-            n_b = min(n_segs, 1 << max(0, total - 1).bit_length())
+            n_b = min(n_segs, 1 << max(0, len(members) - 1).bit_length())
             wr = np.flatnonzero(segs >= 0)
             logits = self._paged_prefill_packed(
                 self._to_dev(toks), self._to_dev(segs), self._to_dev(poss),
                 self._to_dev(rows[:n_b]), self._to_dev(ctxs[:n_b]),
-                self._to_dev(np.clip(emit[:n_b], 0, lanes_max - 1)
+                self._to_dev(np.clip(emit[:n_b], 0, chunk - 1)
                              .astype(np.int64)),
                 self._to_dev(wr), self._to_dev(upd[wr]),
-                self._to_dev(slot[wr]))
+                self._to_dev(slot[wr]))[:len(members)]
+            seqs = [seq for seq, _ in members]
+            spos = spos[:len(members)]
+            n_riders = len(riders) if first else 0
+            if n_riders:
+                self.rider_chunks += 1
+                r_logits, r_ctx = self._decode_logits(riders)
+                logits = torch.cat([logits, r_logits[:n_riders]])
+                seqs += list(riders)
+                spos = np.concatenate([spos, r_ctx[:n_riders]])
             # only a chunk that emits tokens (some prompt completed, or
             # decode riders aboard) syncs with the device
             out_np = lps_np = None
-            emitting = any(emit[si] < lanes_max and self._prefill_emits(seq)
+            emitting = any(emit[si] < chunk and self._prefill_emits(seq)
                            for si, (seq, _) in enumerate(members))
             if emitting or n_riders:
-                sampf, sampi = self._operands(
-                    [seq for seq, _ in members] +
-                    (list(riders) if n_riders else []), n_b)
-                out_np, lps_np = self._sample(logits, sampf, sampi,
-                                              spos[:n_b])
+                sampf, sampi = self._operands(seqs, len(seqs))
+                out_np, lps_np = self._sample(logits, sampf, sampi, spos)
             for si, (seq, take) in enumerate(members):
                 seq.filled += take
-                if emit[si] < lanes_max:
+                if emit[si] < chunk:
                     if not self._prefill_emits(seq):   # discarded anyway
                         self._finish_prefill(seq, 0)
                     else:
                         self._finish_prefill(seq, int(out_np[si]),
                                              float(lps_np[si]))
             if n_riders:
-                rider_toks = (
-                    out_np[len(members):len(members) + n_riders],
-                    lps_np[len(members):len(members) + n_riders])
+                rider_toks = (out_np[len(members):], lps_np[len(members):])
             first = False
         return rider_toks
 
-    def _decode_batch(self, batch_seqs):
-        """The dedicated decode step for ``batch_seqs`` (padded to
-        max_batch rows) → (next tokens, logprobs) as host arrays."""
+    def _decode_logits(self, batch_seqs):
+        """The decode step's device work for ``batch_seqs`` (padded to
+        max_batch rows): writes each row's latest token's K/V and returns
+        (logits (max_batch, V), ctx (max_batch,) host: the absolute
+        position each row samples AT — ctx already counts the incoming
+        token, so the sampled one sits at index ctx)."""
         b = self.max_batch
         bt = np.zeros((b, self.max_pages), np.int32)
         ctx = np.ones((b,), np.int32)
@@ -1518,15 +1512,19 @@ class _ShardEngine:
         n = len(batch_seqs)
         pos = ctx[:n] - 1
         wr_page = bt[np.arange(n), pos // self.page_size].astype(np.int64)
-        self._fault_dispatch()
         logits = self._paged_decode_step(
             self._to_dev(bt), self._to_dev(ctx), self._to_dev(toks),
             self._to_dev(occ), self._to_dev(np.arange(n)),
             self._to_dev(wr_page),
             self._to_dev((pos % self.page_size).astype(np.int64)))
-        # the next token is sampled at absolute position ctx (ctx already
-        # counts the incoming token, so the sampled one sits at index ctx)
-        sampf, sampi = self._operands(batch_seqs, b)
+        return logits, ctx
+
+    def _decode_batch(self, batch_seqs):
+        """The dedicated decode step for ``batch_seqs`` (padded to
+        max_batch rows) → (next tokens, logprobs) as host arrays."""
+        self._fault_dispatch()
+        logits, ctx = self._decode_logits(batch_seqs)
+        sampf, sampi = self._operands(batch_seqs, self.max_batch)
         return self._sample(logits, sampf, sampi, ctx)
 
     def _spec_round(self) -> None:
@@ -1646,10 +1644,10 @@ class _ShardEngine:
         deployments call this before opening the doors."""
         if not getattr(self.scheduler, "packs", False):
             return
-        lanes_max = self.config.prefill_chunk_tokens + self.max_batch
-        toks = self._to_dev(np.zeros((lanes_max,), np.int64))
-        segs = self._to_dev(np.full((lanes_max,), -1, np.int32))
-        poss = self._to_dev(np.zeros((lanes_max,), np.int32))
+        chunk = self.config.prefill_chunk_tokens
+        toks = self._to_dev(np.zeros((chunk,), np.int64))
+        segs = self._to_dev(np.full((chunk,), -1, np.int32))
+        poss = self._to_dev(np.zeros((chunk,), np.int32))
         none = self._to_dev(np.zeros((0,), np.int64))
         with self._step_lock, torch.inference_mode():
             n_b = 1
@@ -1893,6 +1891,7 @@ class _ShardEngine:
             "prefill_tokens_wasted": self.prefill_tokens_wasted,
             "packed_chunks": self.packed_chunks,
             "packed_segments": self.packed_segments,
+            "rider_chunks": self.rider_chunks,
             "packed_segments_per_chunk": (
                 self.packed_segments / self.packed_chunks
                 if self.packed_chunks else 0.0),

@@ -29,6 +29,14 @@ a count above it refused; SSD at N 64 and 128,
 S from 1 to 2048, with and without ``d_skip``, one and two groups, the
 final state checked beside y.
 
+Flash attention is held at the two last families' own shapes in both
+variants: Whisper-base's encoder (1500 = 23 x 64 + 28 frames, full),
+its cross-attention (448 queries to 1500 keys, full) and its decoder's
+causal self-attention (H = Hkv = 8, D = 64), and Qwen2-VL-72B's text
+backbone (H 64, Hkv 8, D 128, causal); a bf16 Whisper-base forward on
+the card launches the ``wgmma`` variant once per attention call, 18 in
+all.
+
 The packed kernel is also held at the speculative verify chunk's lane
 layout (``serving.engine.verify_lanes``: max_batch x (spec_k + 1) lanes,
 dead lanes interleaved between segments, some of their positions past the
@@ -392,6 +400,60 @@ def test_flash_tc_causal_matches_plain(cuda_device, shape):
 def test_flash_tc_cross_lengths_match_plain(cuda_device, shape):
     t = _on(_flash_inputs(shape, seed=17), "bfloat16", cuda_device)
     _flash_tc(t, causal=False)
+
+
+FLASH_FAMILIES = [
+    # (B, Sq, Sk, H, Hkv, D, causal)
+    (2, 1500, 1500, 8, 8, 64, False),    # Whisper-base encoder
+    (2, 448, 1500, 8, 8, 64, False),     # Whisper-base cross-attention
+    (2, 448, 448, 8, 8, 64, True),       # Whisper-base decoder
+    (1, 1024, 1024, 64, 8, 128, True),   # Qwen2-VL-72B
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [("float32", "fma"),
+                                           ("bfloat16", "wgmma")])
+@pytest.mark.parametrize("shape", FLASH_FAMILIES)
+def test_flash_at_the_whisper_and_qwen2_vl_shapes(cuda_device, shape, dtype,
+                                                  variant):
+    *dims, causal = shape
+    t = _on(_flash_inputs(dims, seed=sum(dims)), dtype, cuda_device)
+    before = tfa.launches.of(variant)
+    out = ops.flash_attention(*t, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches.of(variant) == before + 1
+    out = _np(out)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(
+        out, _np(tfa.flash_attention_plain(*t, causal=causal)),
+        **TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_whisper_forward_launches_wgmma_at_every_attention(cuda_device):
+    """Whisper-base in bf16 on the card: one ``wgmma`` flash launch per
+    attention call of ``logits_fn``: 6 encoder, 6 decoder self and 6
+    cross-attentions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config("whisper-base"))
+    params = model.init(seed=0, device=cuda_device)
+    cfg = model.cfg
+    rng = np.random.RandomState(18)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, cfg.enc_seq, cfg.d_model)).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 24))).to(
+        cuda_device)
+    tfa.launches.reset()
+    with torch.inference_mode():
+        logits, _ = model.logits_fn(params, {"frames": frames,
+                                             "tokens": tokens})
+    torch.cuda.synchronize()
+    assert tfa.launches.count == tfa.launches.of("wgmma") == 18
+    assert logits.shape == (1, 24, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all()
 
 
 FLASH_192 = [

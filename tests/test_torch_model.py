@@ -119,8 +119,17 @@ def test_seeded_init_is_deterministic_and_truncated():
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
 def test_other_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        build_model(get_config(arch).reduced())
+    """The last two families, once refused, now build: their seeded init
+    has the JAX model's parameter count (tests/test_torch_vlm_encdec.py
+    holds them against JAX); a family the port does not know is
+    refused."""
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg).init(seed=0, device="cpu")
+    assert sum(p.numel() for p in params.parameters()) == sum(
+        int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
+            jbuild_model(jget_config(arch).reduced()).abstract_params()[0]))
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(cfg.replace(family="audio"))
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])

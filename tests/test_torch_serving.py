@@ -19,7 +19,9 @@ from repro.models import build_model as jbuild_model
 from repro_torch import serving
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, from_jax_params
+from repro_torch.kernels import ops
 from repro_torch.serving import FaultSpec
+from repro_torch.serving.engine import _ShardEngine
 from test_serving import _prompt_for_shard, _reference_greedy
 
 CONFIG = dict(num_pages=64, page_size=4, max_batch=2, max_seq_len=64,
@@ -194,6 +196,67 @@ def test_padding_rows_and_lanes_never_write_a_page(models):
         # prompt (10) + the first 3 generated tokens' K/V (the 4th is
         # never fed back); exactly those positions, nothing else
         assert len(seen) == len(prompt) + 3, (scheduler, len(seen))
+
+
+def test_packed_riders_attend_through_the_paged_kernel(models, monkeypatch):
+    """A fused packed step runs its decode riders as the decode step
+    (the reference lays them into the chunk as packed-prefill lanes):
+    the chunk holds prompt lanes only (C wide), and the riders attend
+    through ``ops.paged_attention``, max_batch rows a layer with
+    ``decode_splits`` (set to 3 here; the CPU's plain version ignores
+    it).  The tokens still equal the JAX engine's and the reference
+    decode's."""
+    jmodel, jp, model, tp = models
+    fused, real_paged, real_advance = [], ops.paged_attention, \
+        _ShardEngine._advance_packed
+    real_packed = ops.packed_prefill_attention
+
+    def paged(q, *args, num_splits=None, **kw):
+        if fused and fused[-1]["open"]:
+            fused[-1]["paged"].append((q.shape[0], num_splits))
+        return real_paged(q, *args, num_splits=num_splits, **kw)
+
+    def packed(q, *args):
+        if fused and fused[-1]["open"]:
+            fused[-1]["packed"].append(q.shape[0])
+        return real_packed(q, *args)
+
+    def advance(self, plan, riders):
+        fused.append({"open": bool(riders), "riders": len(riders),
+                      "paged": [], "packed": []})
+        try:
+            return real_advance(self, plan, riders)
+        finally:
+            fused[-1]["open"] = False
+    monkeypatch.setattr(ops, "paged_attention", paged)
+    monkeypatch.setattr(ops, "packed_prefill_attention", packed)
+    monkeypatch.setattr(_ShardEngine, "_advance_packed", advance)
+    rng = np.random.RandomState(3)
+    # a short prompt decodes while the long one is still ingested in
+    # chunks of 8, so it rides several packed chunks
+    prompts = [rng.randint(1, 200, size=5).tolist(),
+               rng.randint(1, 200, size=37).tolist()]
+    cfg = serving.ServingConfig(scheduler="packed", **CONFIG)
+    session = serving.serve(model, tp, cfg, device="cpu", start=False)
+    shard = session.engine.shards[0]
+    shard.decode_splits = 3
+    handles = [session.submit(p, max_new_tokens=N_NEW) for p in prompts]
+    while not all(h.done.is_set() for h in handles):
+        shard.step()
+    outs = [h.result(timeout=10) for h in handles]
+    rider_chunks = session.stats()["totals"]["rider_chunks"]
+    session.close()
+    n_layers = model.cfg.n_layers
+    rode = [f for f in fused if f["riders"]]
+    assert len(rode) == rider_chunks >= 3
+    for f in rode:
+        assert f["packed"] == [CONFIG["prefill_chunk_tokens"]] * n_layers
+        assert f["paged"] == [(CONFIG["max_batch"], 3)] * n_layers
+    jouts, _, _ = _run(jserving.serve(jmodel, jp, jserving.ServingConfig(
+        scheduler="packed", backend="xla", **CONFIG)), prompts)
+    assert outs == jouts
+    for p, out in zip(prompts, outs):
+        assert out == _reference_greedy(jmodel, jp, p, N_NEW)
 
 
 def test_config_refuses_unported_paths():
