@@ -143,15 +143,44 @@ Phases, in order; each prints one line and any failure exits non-zero:
    forward on the same weights within ``LOGITS_RATIO`` times the
    distance of the same bf16 forward with attention on the flash
    kernel's plain version;
-16. the kernel table as one JSON line (each row with the variant of the
+16. training (``--only 16`` runs 16a-16d):
+16a. each kernel under autograd, fp32 and bf16: flash at the shapes
+   training gives it (TinyLlama-1.1B, H 32, Hkv 4, D 64, causal: 16c's
+   B 8 x S 1024 and 16d's B 4 x S 256) and at Whisper's cross shape
+   (Sq 448, Sk 1500, full), SSD at phase 8's shape; the kernel's output
+   held against the plain version's on the same inputs (phases 7 and 8's
+   tolerances; flash also within relative L2 1e-4 in fp32, 1e-2 in
+   bf16), the ``autograd.Function``'s output equal to the kernel call's
+   byte for byte in one launch of the expected variant, and every input
+   gradient equal to ``torch.autograd.grad`` of the plain version byte for
+   byte (the backward is that code); the forward kernel's, the backward's
+   and the plain forward + backward's times are printed, not held;
+16b. one ``loss_fn`` + backward at published widths and depth in fp32,
+   B 2 x 512: TinyLlama-1.1B (44 flash launches: forward and remat
+   recompute) and Mamba2-1.3B (96 SSD launches), then again with the
+   kernel swapped for its plain version inside the phase (no launch);
+   every gradient present and finite, wq / wk / wv and in_proj non-zero,
+   each leaf within relative L2 1e-4 of the plain path's;
+16c. the ``Trainer`` on TinyLlama-1.1B at published widths in bf16,
+   ``remat="full"``, AdamW, lr 3e-4, warmup 5, global batch 8 x 1024, 20
+   steps: finite losses whose last five average at least 0.2 below the
+   first five, exactly 880 flash launches, all ``wgmma``; the median step
+   time, tokens/s and peak memory are printed;
+16d. checkpoint and restart (TinyLlama-1.1B widths, 2 layers, fp32,
+   B 4 x 256): 20 steps with a checkpoint every 10, then step 10 restored
+   and 10 replayed within rtol = atol = 2e-4 of the first run's losses;
+   then a bf16 Trainer state saved and restored byte for byte;
+17. the kernel table as one JSON line (each row with the variant of the
    main path; the paged row's launches count the verify chunks of phases
    12 and 13b and the riders of phases 6 and 12, the flash row's those
-   of phases 10, 14a, 14b, 15a and 15b), the card line, and the result
-   line ``{"ok": true, "device": {...}}`` last.
+   of phases 10, 14a, 14b, 15a, 15b and 16b-16d, the SSD row's those of
+   phases 10 and 16b), the card line, and the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 ``--only 7,13c`` runs just those phases, for iterating on a few: it
 prints no kernel table and no result line.  With no argument every phase
-runs.
+runs.  ``--grad-seeds 0,1,2`` runs no phase: it measures 16b's Mamba2
+hold at those seeds beside an fp64 plain path (``grad_noise``).
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on the tensor cores, 67 TFLOP/s fp32 outside them.  It imports
@@ -2175,6 +2204,446 @@ def family_bf16(torch, arch, b, s, n_patches=0, n_new=32):
     return summary, {"flash_attention": per_forward}
 
 
+# ---------------------------------------------------------- phase 16
+
+
+# 16a's flash cases, (B, Sq, Sk, H, Hkv, causal): the shapes training
+# gives the kernel (TinyLlama-1.1B: 16c's global batch 8 x 1024, 16d's
+# 4 x 256) and Whisper's cross-attention (Sq 448, Sk 1500, full)
+GRAD_FLASH_CASES = {"flash": (8, 1024, 1024, 32, 4, True),
+                    "short": (4, 256, 256, 32, 4, True),
+                    "cross": (4, 448, 1500, 8, 8, False)}
+# 16a: the kernel's forward against the plain version's in relative L2.
+# A faulty tile, mask or softmax lands 0.1 or more away; a sound kernel
+# stays within rounding: fp32 within the 1e-4 that 16b holds each fp32
+# gradient leaf to, bf16 within 1e-2 (five bf16 unit roundoffs, 2^-9).
+GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def grad_inputs(torch, case, dtype, seed=16):
+    """(forward, plain, inputs, dout, variant, flops, counter, tol) of one
+    16a case: flash at each of :data:`GRAD_FLASH_CASES`, ``ssd`` at phase
+    8's shape with d_skip; ``tol`` is the kernel's own phase tolerance
+    (7's, 8's) for its forward against the plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    rng = np.random.RandomState(seed)
+    dt_ = getattr(torch, dtype)
+
+    def dev(a, to=dt_):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            DEVICE, to).requires_grad_(True)
+    if case in GRAD_FLASH_CASES:
+        b, s, sk, h, hkv, causal = GRAD_FLASH_CASES[case]
+        ins = [dev(rng.standard_normal(shape)) for shape in
+               ((b, s, h, 64), (b, sk, hkv, 64), (b, sk, hkv, 64))]
+        flops = 4.0 * b * h * 64 * (s * (s + 1) / 2 if causal else s * sk)
+        return (lambda *t: fa.flash_attention(*t, causal=causal),
+                lambda *t: fa.flash_attention_plain(*t, causal=causal),
+                ins, [torch.from_numpy(rng.standard_normal(
+                    (b, s, h, 64)).astype(np.float32)).to(DEVICE, dt_)],
+                fa.kernel_variant(dt_, 64, DEVICE), flops, fa.launches,
+                TOL[dtype])
+    b, s, h, p, g, n, chunk = 4, 1024, 64, 64, 1, 128, 128
+    ins = [dev(rng.standard_normal((b, s, h, p))),
+           dev(np.log1p(np.exp(rng.standard_normal((b, s, h)) - 1.0)),
+               torch.float32),
+           dev(-np.exp(rng.standard_normal((h,)) * 0.5), torch.float32),
+           dev(rng.standard_normal((b, s, g, n)) * 0.3),
+           dev(rng.standard_normal((b, s, g, n)) * 0.3),
+           dev(rng.standard_normal((h,)), torch.float32)]
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(
+        np.float32)).to(DEVICE, dt_)
+    return (lambda x, dt, a, bm, cm, ds: ss.ssd_scan(
+                x, dt, a, bm, cm, chunk=chunk, d_skip=ds)[0],
+            lambda x, dt, a, bm, cm, ds: ss.ssd_scan_plain(
+                x, dt, a, bm, cm, chunk=chunk, d_skip=ds)[0],
+            ins, [dy], ss.kernel_variant(dt_, p, n, chunk, DEVICE),
+            ssd_flops(s, chunk, h, p, n, b), ss.launches, SSD_TOL[dtype])
+
+
+def phase_autograd(torch, timer, case, dtype):
+    """16a: a kernel under autograd.  The forward through its
+    ``autograd.Function`` equals the kernel call byte for byte and is one
+    launch of the expected variant; the kernel's output is held against
+    the plain version's on the same inputs (its phase's elementwise
+    tolerance; flash also in relative L2, :data:`GRAD_REL_L2`); every
+    input gradient equals ``torch.autograd.grad`` of the plain version at
+    the same inputs byte for byte (the backward is that code); times of
+    the kernel forward, the Function's backward and the plain forward +
+    backward, not held."""
+    fwd, plain, ins, dout, variant, flops, counter, tol = grad_inputs(
+        torch, case, dtype)
+    label = f"16a {case} {dtype}"
+    with torch.no_grad():
+        direct = fwd(*ins)
+        want_out = plain(*ins)
+    err = close_enough(direct, want_out, tol)
+    dist = rel_l2(direct, want_out)
+    if case != "ssd" and not dist <= GRAD_REL_L2[dtype]:
+        raise AssertionError(f"{label}: the kernel's output at relative L2 "
+                             f"{dist:.3g} from the plain version's (limit "
+                             f"{GRAD_REL_L2[dtype]})")
+    del want_out
+    before = dict(counter.by_variant)
+    out = fwd(*ins)
+    torch.cuda.synchronize()
+    after = dict(counter.by_variant)
+    launched = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    if {k: v for k, v in launched.items() if v} != {variant: 1}:
+        raise AssertionError(f"{label}: forward launched {launched}, want "
+                             f"one {variant}")
+    if out.grad_fn is None or "Fn" not in type(out.grad_fn).__name__:
+        raise AssertionError(f"{label}: the forward has no autograd.Function "
+                             f"({out.grad_fn})")
+    if not torch.equal(out, direct):
+        raise AssertionError(f"{label}: the Function's output differs from "
+                             f"the kernel call's")
+    got = torch.autograd.grad(out, ins, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    if dict(counter.by_variant) != after:
+        raise AssertionError(f"{label}: the backward launched a kernel")
+    want = torch.autograd.grad(plain(*ins), ins, dout)
+    for i, (g, w, t) in enumerate(zip(got, want, ins)):
+        if g.dtype != t.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{label}: gradient {i} differs from the "
+                                 f"plain version's autograd")
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label}: gradient {i} not finite")
+    del want, direct
+    with torch.no_grad():
+        fwd_ms = timer.ms(lambda: fwd(*ins), iters=10)
+    bwd_ms = timer.ms(lambda: torch.autograd.grad(out, ins, dout,
+                                                  retain_graph=True),
+                      iters=5, warmup=1)
+    plain_ms = timer.ms(lambda: torch.autograd.grad(plain(*ins), ins, dout),
+                        iters=5, warmup=1)
+    return {"case": case, "dtype": dtype, "variant": variant,
+            "max_abs_err": err, "rel_l2": dist, "fwd_ms": fwd_ms,
+            "bwd_ms": bwd_ms, "plain_fwd_bwd_ms": plain_ms,
+            "bwd_over_fwd": bwd_ms / fwd_ms, "fwd_flops": flops}
+
+
+def full_grads(torch, model, params, batch):
+    """{name: gradient} of ``loss_fn`` over every parameter."""
+    from repro_torch.models.params import flatten_params
+    flat = flatten_params(params)
+    loss = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return float(loss.detach()), dict(zip(flat, grads))
+
+
+def train_grad(torch, arch, b=2, s=512):
+    """16b: one ``loss_fn`` + backward at published widths and depth in
+    fp32 through the kernels (remat full: two launches a layer), then
+    again with the kernel swapped for its plain version inside this phase
+    (a measuring device of this script, not a path of the package).
+    Every parameter's gradient present and finite, the attention /
+    in_proj leaves non-zero, and each leaf within relative L2 1e-4 of the
+    plain path's.  Returns (summary, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import build_model
+    cfg = get_config(arch).replace(dtype="float32")
+    if cfg.family == "ssm":
+        model, params = perturbed_model(torch, arch, "float32")
+        name, plain, want = "ssd", ss.ssd_scan_plain, \
+            {"ssd_scan": 2 * cfg.n_layers, "flash_attention": 0}
+        nonzero = ("in_proj",)
+    else:
+        model = build_model(cfg)
+        params = model.init(seed=0, device=DEVICE)
+        name, plain, want = "flash_attention", fa.flash_attention_plain, \
+            {"ssd_scan": 0, "flash_attention": 2 * cfg.n_layers}
+        nonzero = ("attn/wq", "attn/wk", "attn/wv")
+    params.requires_grad_(True)
+    rng = np.random.RandomState(17)
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (b, s))).to(DEVICE)}
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = full_grads(torch, model, params, batch)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != want:
+        raise AssertionError(f"16b {arch}: launches {launches}, want {want} "
+                             f"(forward and remat recompute)")
+    reset_launches()
+    kernel = getattr(ops, name)
+    setattr(ops, name, plain)
+    try:
+        t0 = time.perf_counter()
+        plain_loss, plain_grads = full_grads(torch, model, params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        setattr(ops, name, kernel)
+    if any(read_launches().values()):
+        raise AssertionError(f"16b {arch}: the plain pass launched "
+                             f"{read_launches()}")
+    worst = (0.0, "")
+    for key, g in grads.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"16b {arch}: {key} has no finite "
+                                 f"gradient")
+        if key.endswith(nonzero) and not bool((g != 0).any()):
+            raise AssertionError(f"16b {arch}: {key}'s gradient is zero")
+        dist = rel_l2(g, plain_grads[key])
+        if not dist <= 1e-4:
+            raise AssertionError(f"16b {arch}: {key} at relative L2 "
+                                 f"{dist:.3g} from the plain path's "
+                                 f"gradient (limit 1e-4)")
+        worst = max(worst, (dist, key))
+    n = len(grads)
+    del grads, plain_grads, params
+    torch.cuda.empty_cache()
+    return (f"{arch} fp32 B={b} S={s}: loss {loss:.6f} (plain path "
+            f"{plain_loss:.6f}); {n} leaves, every gradient finite, "
+            f"{', '.join(nonzero)} non-zero; worst leaf relative L2 "
+            f"{worst[0]:.3g} ({worst[1]}); launches {launches}; "
+            f"loss + backward {kernel_s:.2f} s, plain {plain_s:.2f} s"), \
+        launches
+
+
+def ssd_fp64(x, dt, a, b, c, *, chunk, d_skip=None):
+    """Mamba2's SSD in fp64 by its whole-sequence quadratic form:
+    y_t = sum over s <= t of exp(L_t - L_s) dt_s (C_t . B_s) x_s + D x_t,
+    L the running sum of dt a.  A measuring device of ``--grad-seeds``,
+    in ``ops.ssd``'s place; ``chunk`` is unused and no final state is
+    returned (the models discard it)."""
+    import torch
+    del chunk
+    x, dt, a, b, c = (t.double() for t in (x, dt, a, b, c))
+    hg = x.shape[2] // b.shape[2]
+    b, c = (t.repeat_interleave(hg, dim=2) for t in (b, c))  # (B,S,H,N)
+    run = (dt * a).cumsum(dim=1)                               # (B,S,H)
+    seg = run[:, :, None, :] - run[:, None, :, :]              # (B,T,S,H)
+    n = x.shape[1]
+    later = seg.new_ones((n, n), dtype=bool).tril()[None, :, :, None]
+    w = seg.masked_fill(~later, float("-inf")).exp() * dt[:, None] * \
+        torch.einsum("bthn,bshn->btsh", c, b)
+    y = torch.einsum("btsh,bshp->bthp", w, x)
+    if d_skip is not None:
+        y = y + x * d_skip.double()[None, None, :, None]
+    return y, None
+
+
+def grad_noise(torch, seed, b=2, s=512):
+    """``--grad-seeds``: 16b's Mamba2-1.3B hold at another seed (weights
+    ``seed``, batch ``17 + seed``; 16b itself is seed 0) beside an fp64
+    plain path (the module in fp64, the SSD by :func:`ssd_fp64`; the norms'
+    and the loss's fp32 islands stay).  For each leaf the relative L2
+    distance kernel to plain (16b's hold), kernel to fp64 and plain to
+    fp64, and the norm of its fp64 gradient.  Returns a summary line."""
+    import copy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    model, params = perturbed_model(torch, "mamba2-1.3b", "float32", seed)
+    params.requires_grad_(True)
+    rng = np.random.RandomState(17 + seed)
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, model.cfg.vocab_size, (b, s))).to(DEVICE)}
+
+    def grads_with(ssd, p):
+        kernel, ops.ssd = ops.ssd, ssd
+        try:
+            return full_grads(torch, model, p, batch)[1]
+        finally:
+            ops.ssd = kernel
+    reset_launches()
+    kern = full_grads(torch, model, params, batch)[1]
+    launched = read_launches()
+    reset_launches()
+    plain = grads_with(ss.ssd_scan_plain, params)
+    p64 = copy.deepcopy(params).double().requires_grad_(True)
+    exact = grads_with(ssd_fp64, p64)
+    if launched != {"ssd_scan": 2 * model.cfg.n_layers,
+                    "flash_attention": 0} or any(read_launches().values()):
+        raise AssertionError(f"grad seeds: launches {launched}, then "
+                             f"{read_launches()} on the plain paths")
+    del p64, params
+
+    def dist(g, w):
+        g, w = g.double(), w.double()
+        return float((g - w).norm() / w.norm())
+    rows = sorted(((dist(kern[k], plain[k]), dist(kern[k], exact[k]),
+                    dist(plain[k], exact[k]), float(exact[k].norm()), k)
+                   for k in kern), reverse=True)
+    med = [float(np.median([r[i] for r in rows])) for i in range(4)]
+    del kern, plain, exact
+    torch.cuda.empty_cache()
+    top = "; ".join(f"{k}: {kp:.3g} / {ke:.3g} / {pe:.3g}, norm {nm:.3g}"
+                    for kp, ke, pe, nm, k in rows[:3])
+    return (f"mamba2-1.3b fp32 B={b} S={s} seed {seed}: relative L2 kernel "
+            f"to plain / kernel to fp64 / plain to fp64, worst three leaves "
+            f"by the first: {top}; worst over {len(rows)} leaves "
+            f"{rows[0][0]:.3g} / {max(r[1] for r in rows):.3g} / "
+            f"{max(r[2] for r in rows):.3g}; median {med[0]:.3g} / "
+            f"{med[1]:.3g} / {med[2]:.3g}, median norm {med[3]:.3g}")
+
+
+def train_full_width(torch, steps=20, b=8, s=1024):
+    """16c: the ``Trainer`` on TinyLlama-1.1B at published widths and
+    depth in bf16 (the config's dtype), ``remat="full"``, AdamW, lr 3e-4,
+    warmup 5, no checkpoint directory.  Every loss finite, the mean of
+    the last five below the first five's by >= 0.2, and exactly
+    22 x 2 x ``steps`` flash launches, all ``wgmma``.  Returns (summary,
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.loop import Trainer
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("tinyllama-1.1b")
+    tr = Trainer(cfg, global_batch=b, seq_len=s, lr=3e-4, warmup=5,
+                 total_steps=steps, device=DEVICE)
+    try:
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            if i == steps // 2:          # one step under the profiler
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state = tr.train(state, 1)
+                    torch.cuda.synchronize()
+            else:
+                state = tr.train(state, 1)
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = read_launches()
+        by_variant = dict(fa.launches.by_variant)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tr.close()
+    losses = tr.losses
+    want = cfg.n_layers * 2 * steps
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"16c: losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first - 0.2:
+        raise AssertionError(f"16c: loss did not fall by 0.2 ({first:.4f} "
+                             f"-> {last:.4f})")
+    if by_variant != {"wgmma": want} or launches["ssd_scan"]:
+        raise AssertionError(f"16c: flash launches {by_variant}, want "
+                             f"{want} wgmma (forward and remat recompute)")
+    del state
+    torch.cuda.empty_cache()
+    med = float(np.median(times))
+    device = device_split(prof, times[steps // 2])
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "global_batch": b, "seq_len": s, "steps": steps,
+            "loss_first5": first, "loss_last5": last,
+            "losses": [round(x, 4) for x in losses],
+            "median_step_s": med, "first_step_s": times[0],
+            "tokens_per_s": b * s / med, "max_memory_allocated_gb":
+                peak / 1e9, "flash_by_variant": by_variant,
+            "profiled_step": device}, launches
+
+
+def device_split(prof, wall_s, top=8):
+    """Device time of one profiled step: the kernels' sum, the flash
+    kernels' share, and the ``top`` kernels by device time (ms).  The
+    profiled step's wall time is the profiler's too, so its idle share is
+    an upper bound."""
+    rows = []
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((t / 1e3, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(t for t, _ in rows)
+    flash = sum(t for t, k in rows if any(n in k for n in FLASH_KERNELS))
+    return {"device_ms": busy, "wall_ms": wall_s * 1e3,
+            "idle_share_at_most": 1 - busy / (wall_s * 1e3),
+            "flash_ms": flash,
+            "top": [[k[:70], round(t, 3)] for t, k in rows[:top]]}
+
+
+def train_restart(torch, b=4, s=256):
+    """16d: TinyLlama-1.1B at published widths with depth cut to 2
+    layers (a 22-layer checkpoint would write about 13 GB), fp32, in a
+    temporary directory removed afterwards.  Run 1 trains 20 steps with a
+    checkpoint every 10; run 2 restores step 10 and replays 10; its losses
+    equal run 1's within rtol = atol = 2e-4 (the embedding's index
+    backward sums with atomics on the card, so bit-exact replay is not
+    promised) and it reaches step 20.  Then a bf16 Trainer state saved and
+    restored equals the saved one byte for byte in every leaf.  Returns
+    (summary, launches)."""
+    import tempfile
+    from repro_torch.checkpoint.manager import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import flatten_params
+    from repro_torch.train.loop import Trainer
+    cfg = get_config("tinyllama-1.1b").replace(n_layers=2)
+    launches = {"ssd_scan": 0, "flash_attention": 0}
+
+    def count():
+        for k, v in read_launches().items():
+            launches[k] += v
+        reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(dtype, sub, every):
+            return Trainer(cfg.replace(dtype=dtype), global_batch=b,
+                           seq_len=s, checkpoint_dir=f"{tmp}/{sub}",
+                           checkpoint_every=every, device=DEVICE)
+        reset_launches()
+        t0 = time.perf_counter()
+        tr1 = trainer("float32", "fp32", 10)
+        tr1.train(tr1.init_state(), 20)
+        tr1.close()
+        tr2 = trainer("float32", "fp32", 10)
+        st = tr2.restore(10)
+        st = tr2.train(st, 10)
+        tr2.close()
+        count()
+        replay_s = time.perf_counter() - t0
+        np.testing.assert_allclose(tr2.losses, tr1.losses[10:], rtol=2e-4,
+                                   atol=2e-4)
+        if st.step != 20:
+            raise AssertionError(f"16d: replay reached step {st.step}")
+        diff = float(np.max(np.abs(np.subtract(tr2.losses,
+                                               tr1.losses[10:]))))
+        del st
+        tr3 = trainer("bfloat16", "bf16", 100)
+        saved = tr3.train(tr3.init_state(), 2)   # the final save blocks
+        tr3.close()
+        count()
+        back = tr3.restore()
+        n_leaves = 0
+        for got, want in ((flatten_params(back.params),
+                           flatten_params(saved.params)),
+                          (flatten_tree(back.opt_state),
+                           flatten_tree(saved.opt_state))):
+            if set(got) != set(want):
+                raise AssertionError("16d: restored names differ")
+            for key, t in want.items():
+                g = got[key]
+                if g.dtype != t.dtype or g.shape != t.shape or \
+                        g.device != t.device or not torch.equal(
+                            g.detach().reshape(-1).view(torch.uint8),
+                            t.detach().reshape(-1).view(torch.uint8)):
+                    raise AssertionError(f"16d: {key} not restored byte "
+                                         f"for byte")
+                n_leaves += 1
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in flatten_params(saved.params).values())
+        del saved, back
+    torch.cuda.empty_cache()
+    return (f"TinyLlama-1.1B widths, 2 layers, fp32 B={b} S={s}: 20 steps "
+            f"(checkpoint every 10) then restore step 10 and replay 10: "
+            f"max loss difference {diff:.3g} (rtol = atol = 2e-4), step 20 "
+            f"reached, {replay_s:.1f} s; bf16 state ({nbytes / 1e9:.2f} GB "
+            f"of params) saved and restored: {n_leaves} leaves byte-equal"), \
+        launches
+
+
 # phase 7's rows at the models' own attention shapes: (Hkv, S, shape)
 FLASH_MODEL_CASES = [
     # DeepSeek-V2's MLA prefill (D 192 = nope 128 + rope 64)
@@ -2188,17 +2657,21 @@ FLASH_MODEL_CASES = [
 ]
 
 PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
-          "13b", "13c", "14a", "14b", "15a", "15b")
+          "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b", "16c",
+          "16d")
 
 
 def parse_only(argv):
     """``--only 7,13c``: run just those phases (to iterate on a few; the
-    kernel table then is not printed).  No argument runs every phase."""
+    kernel table then is not printed; ``16`` names 16a-16d).  No argument
+    runs every phase."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only PHASE,PHASE,...]")
     only = set(argv[1].split(","))
+    if "16" in only:
+        only = (only - {"16"}) | {"16a", "16b", "16c", "16d"}
     if not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}; "
                          f"known: {', '.join(PHASES)}")
@@ -2206,7 +2679,13 @@ def parse_only(argv):
 
 
 def main(argv) -> int:
-    only = parse_only(argv)
+    seeds = None
+    if argv[:1] == ["--grad-seeds"]:
+        if len(argv) != 2:
+            raise SystemExit("usage: chip_smoke.py --grad-seeds SEED,...")
+        seeds, only = [int(x) for x in argv[1].split(",")], set()
+    else:
+        only = parse_only(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2227,6 +2706,14 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     ops.prepare("cuda")
     say(f"[2 build] kernels built in {time.perf_counter() - t0:.1f} s")
+
+    if seeds is not None:
+        for seed in seeds:
+            t0 = time.perf_counter()
+            say(f"[grad seeds] {grad_noise(torch, seed)} [{card}] "
+                f"{time.perf_counter() - t0:.1f} s")
+        say(card)
+        return 0
 
     timer = Timer(torch)
     kernels, launches = {}, {}
@@ -2398,6 +2885,38 @@ def main(argv) -> int:
         summary, path_launches = family_bf16(torch, arch, b, s, n_patches)
         add(path_launches)
         say(f"[15b family bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    for case in ("flash", "short", "cross", "ssd") if on("16a") else ():
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            row = phase_autograd(torch, timer, case, dtype)
+            say(f"[16a autograd {case} {dtype}] variant {row['variant']}: "
+                f"kernel vs plain forward max_abs_err "
+                f"{row['max_abs_err']:.3g}, relative L2 {row['rel_l2']:.3g}; "
+                f"output and every gradient byte-equal (Function vs kernel "
+                f"call, backward vs plain autograd), one launch a forward; "
+                f"kernel fwd {row['fwd_ms']:.4f} ms, backward "
+                f"{row['bwd_ms']:.4f} ms ({row['bwd_over_fwd']:.1f}x), "
+                f"plain fwd + bwd {row['plain_fwd_bwd_ms']:.4f} ms [{card}] "
+                f"{time.perf_counter() - t0:.1f} s")
+    for arch in ("tinyllama-1.1b", "mamba2-1.3b") if on("16b") else ():
+        t0 = time.perf_counter()
+        line, path_launches = train_grad(torch, arch)
+        add(path_launches)
+        say(f"[16b full-width gradient] {line} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+    if on("16c"):
+        t0 = time.perf_counter()
+        summary, path_launches = train_full_width(torch)
+        add(path_launches)
+        say(f"[16c trainer bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+    if on("16d"):
+        t0 = time.perf_counter()
+        line, path_launches = train_restart(torch)
+        add(path_launches)
+        say(f"[16d checkpoint restart] {line} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
 
     if only is None:

@@ -31,6 +31,14 @@ chosen openly by :func:`kernel_variant` from the dtype and the head dim:
 
 Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
 CPU tensor runs :func:`flash_attention_plain`.  There is no fallback.
+
+Gradients: the kernels are forward-only, as the TPU kernel is (the JAX
+trainer differentiates the jnp mirror ``layers.blockwise_attention``).
+Under autograd a CUDA call goes through :class:`FlashAttentionFn`, whose
+forward is the kernel and whose backward is the vector-Jacobian product
+of :func:`flash_attention_plain` at the saved inputs (recomputed), so a
+trainer's attention forward runs on the card's kernel and every input
+gets its gradient.
 """
 
 from __future__ import annotations
@@ -142,12 +150,43 @@ def flash_attention_cuda(q, k, v, *, causal: bool):
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """``forward(q, k, v, causal)`` (the kernel, or for a CPU test of the
+    backward's plumbing the plain version) with the plain version's
+    gradient: the backward recomputes :func:`flash_attention_plain` on the
+    saved inputs and returns its vector-Jacobian product, in each input's
+    dtype.  Call as ``FlashAttentionFn.apply(q, k, v, causal, forward)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return forward(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = flash_attention_plain(*ins, causal=ctx.causal)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, need) if n], dout))
+        return tuple(next(grads) if n else None for n in need) + (None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool):
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) → (B,Sq,H,D) in q's dtype; fp32
     online softmax with scale 1/sqrt(D).  ``causal=True`` needs Sq == Sk.
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel (through :class:`FlashAttentionFn`
+    when grad mode is on and an input requires grad); CPU tensors run the
+    plain version."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal,
+                                          flash_attention_cuda)
         return flash_attention_cuda(q, k, v, causal=causal)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")

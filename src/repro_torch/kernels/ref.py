@@ -173,7 +173,9 @@ def ssd_chunked_ref(x, dt, a, b, c, chunk: int = 128, d_skip=None,
     seg = da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()[None, None, :, :, None]
-    l_mat = torch.where(causal, torch.exp(seg), 0.0)
+    # masked before the exp: above the diagonal seg > 0 can overflow to
+    # inf, whose gradient through a where() after the exp is 0 * inf = NaN
+    l_mat = torch.exp(seg.masked_fill(~causal, float("-inf")))
     scores = torch.einsum("bcihs,bcjhs->bcijh", cf, bf)  # C_i · B_j
     y_diag = torch.einsum("bcijh,bcijh,bcjh,bcjhp->bcihp",
                           scores, l_mat, dtf, xf)

@@ -27,6 +27,12 @@ Two variants, chosen openly by :func:`kernel_variant`:
 
 Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
 CPU tensor runs :func:`ssd_scan_plain`.  There is no fallback.
+
+Gradients: the kernels are forward-only, as the TPU kernel is (the JAX
+trainer differentiates ``ref.ssd_chunked_ref``).  Under autograd a CUDA
+call goes through :class:`SSDScanFn`: the kernel forward, and the
+vector-Jacobian product of :func:`ssd_scan_plain` at the saved inputs
+(recomputed) for x, dt, a, b, c and d_skip.
 """
 
 from __future__ import annotations
@@ -140,12 +146,49 @@ def ssd_scan_cuda(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
     return y, final
 
 
+class SSDScanFn(torch.autograd.Function):
+    """``forward(x, dt, a, b, c, chunk=, d_skip=)`` (the kernel, or for a
+    CPU test of the backward's plumbing the plain version) with the plain
+    version's gradient: the backward recomputes :func:`ssd_scan_plain` on
+    the saved inputs and returns its vector-Jacobian product for y's and
+    the final state's incoming gradients (either may be None: the models
+    discard the final state), each in its input's dtype.  Call as
+    ``SSDScanFn.apply(x, dt, a, b, c, d_skip, chunk, forward)``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip, chunk, forward):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, d_skip)
+        ctx.chunk = chunk
+        return forward(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_scan_plain(*ins[:5], chunk=ctx.chunk, d_skip=ins[5])
+            pairs = [(o, g) for o, g in zip(outs, (dy, dfinal))
+                     if g is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [t for t, n in zip(ins, need) if n],
+                [g for _, g in pairs], allow_unused=True))
+        return tuple(next(grads) if n else None for n in need) + (None, None)
+
+
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
     """x (B,S,H,P); dt (B,S,H); a (H,) negative; b/c (B,S,G,N); d_skip (H,)
     optional → (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel (through :class:`SSDScanFn` when grad
+    mode is on and an input requires grad); CPU tensors run the plain
+    version."""
     if x.is_cuda:
+        ins = (x, dt, a, b, c, d_skip)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in ins):
+            return SSDScanFn.apply(*ins, chunk, ssd_scan_cuda)
         return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
     if x.device.type != "cpu":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")

@@ -32,6 +32,8 @@ from .layers import (
     decode_attention,
     gelu_mlp,
     layer_norm,
+    lm_loss,
+    remat,
     sinusoidal_positions,
     update_kv_cache,
 )
@@ -55,6 +57,20 @@ def _ffn(p, x):
     return gelu_mlp(x, p.wi, p.bi, p.wo, p.bo)
 
 
+def _encoder_block(blk, cfg, x):
+    a = layer_norm(x, blk.ln1_s, blk.ln1_b)
+    x = x + _mha(blk.attn, cfg, a, a, causal=False)
+    return x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+
+
+def _decoder_block(blk, cfg, x, memory):
+    a = layer_norm(x, blk.ln1_s, blk.ln1_b)
+    x = x + _mha(blk.attn, cfg, a, a, causal=True)
+    a = layer_norm(x, blk.ln3_s, blk.ln3_b)
+    x = x + _mha(blk.cross, cfg, a, memory, causal=False)
+    return x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+
+
 class WhisperEncDec:
     """Whisper backbone: ``logits_fn`` encodes ``frames`` and decodes
     ``tokens`` in one pass; ``decode_step`` feeds one token per sequence
@@ -76,29 +92,30 @@ class WhisperEncDec:
         cfg = self.cfg
         x = frames.to(self.dtype) + sinusoidal_positions(
             frames.shape[1], cfg.d_model, frames.device).to(self.dtype)
+        block = remat(_encoder_block, cfg)
         for blk in params.enc_blocks:
-            a = layer_norm(x, blk.ln1_s, blk.ln1_b)
-            x = x + _mha(blk.attn, cfg, a, a, causal=False)
-            x = x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+            x = block(blk, cfg, x)
         return layer_norm(x, params.enc_norm_s, params.enc_norm_b)
 
     def logits_fn(self, params: WhisperParams, batch):
         """batch: frames (B, enc_seq, d), tokens (B, T) → (logits
-        (B, T, V), tokens)."""
+        (B, T, V), tokens).  Under grad each encoder and decoder block is
+        rematerialised (:func:`layers.remat`)."""
         cfg = self.cfg
         memory = self._encode(params, batch["frames"])
         tokens = batch["tokens"]
         x = params.embed[tokens.long()]
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
+        block = remat(_decoder_block, cfg)
         for blk in params.dec_blocks:
-            a = layer_norm(x, blk.ln1_s, blk.ln1_b)
-            x = x + _mha(blk.attn, cfg, a, a, causal=True)
-            a = layer_norm(x, blk.ln3_s, blk.ln3_b)
-            x = x + _mha(blk.cross, cfg, a, memory, causal=False)
-            x = x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
+            x = block(blk, cfg, x, memory)
         x = layer_norm(x, params.dec_norm_s, params.dec_norm_b)
         return x @ params.lm_head, tokens
+
+    def loss_fn(self, params: WhisperParams, batch):
+        """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
+        return lm_loss(*self.logits_fn(params, batch))
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, max_len: int,

@@ -19,6 +19,8 @@ from .layers import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    lm_loss,
+    remat,
     rms_norm,
     rope_angles,
     update_kv_cache,
@@ -63,18 +65,26 @@ class Zamba2LM:
 
     # -------------------------------------------------------------- train
     def logits_fn(self, params: Zamba2Params, batch):
-        """Full-sequence forward → (logits (B,S,V), labels)."""
+        """Full-sequence forward → (logits (B,S,V), labels); under grad
+        the shared block at every site and each Mamba2 block are
+        rematerialised (:func:`layers.remat`), as the reference."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = params.embed[tokens.long()]
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
         angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        shared = remat(self._shared_train, cfg)
+        block = remat(mamba_block_train, cfg)
         for off, size in self.groups:
-            x = self._shared_train(params.shared, x, angles)
+            x = shared(params.shared, x, angles)
             for blk in params.blocks[off:off + size]:
-                x = mamba_block_train(blk, cfg, x)
+                x = block(blk, cfg, x)
         x = rms_norm(x, params.final_norm)
         return x @ params.lm_head, tokens
+
+    def loss_fn(self, params: Zamba2Params, batch):
+        """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
+        return lm_loss(*self.logits_fn(params, batch))
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, max_len: int,

@@ -8,6 +8,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -132,3 +133,38 @@ def gelu_mlp(x, wi, bi, wo, bo):
     approximation, so this is ``approximate="tanh"`` (torch's default, the
     erf form, differs by up to ~1e-3)."""
     return F.gelu(x @ wi + bi, approximate="tanh") @ wo + bo
+
+
+# ----------------------------------------------------------- loss / head
+
+
+def cross_entropy_loss(logits, labels, ignore_id: int = -1):
+    """Stable CE in fp32 (logsumexp minus the gold logit), positions
+    labelled ``ignore_id`` masked out; returns (mean_loss, token_count),
+    the count clamped to at least 1."""
+    logits = logits.float()
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    count = mask.sum().clamp(min=1)
+    return nll.sum() / count, count
+
+
+def lm_loss(logits, labels):
+    """Next-token loss: each position's label is the next one's (the
+    reference's ``roll(labels, -1)``), the last position's is -1."""
+    shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                        dim=1)
+    return cross_entropy_loss(logits, shifted)[0]
+
+
+def remat(fn, cfg):
+    """``fn`` under activation checkpointing (``cfg.remat == "full"``, the
+    reference's ``jax.checkpoint`` of each block) when grad mode is on:
+    its activations are dropped after the forward and recomputed, by
+    running ``fn`` again, in the backward.  Otherwise ``fn`` itself."""
+    if cfg.remat != "full" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)

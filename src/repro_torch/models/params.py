@@ -9,11 +9,17 @@ copy, never a transpose.  Init follows the reference's scheme
 (scale ``1 / sqrt(shape[0])``), norms at one, biases at zero, and the
 Mamba2 block's ``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip`` at zero.
 Draws come from a ``torch.Generator``, so the numbers differ from JAX's
-for the same seed; the tests bridge the JAX init instead."""
+for the same seed; the tests bridge the JAX init instead.
+
+Every weight is built frozen (``requires_grad=False``), which serving
+needs; a trainer unfreezes its own modules with ``requires_grad_(True)``.
+:func:`flatten_params` and :func:`unflatten_params` carry a module to and
+from ``/``-keyed tensors in the port's own names (``blocks/3/attn/wq``),
+the keys of the optimizer state and the checkpoint."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,6 +45,32 @@ def resolve_device(device=None) -> torch.device:
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def flatten_params(params: nn.Module) -> Dict[str, nn.Parameter]:
+    """The module's parameters (the live tensors, not copies) keyed by
+    their ``/``-joined module paths, e.g. ``blocks/3/attn/wq``."""
+    return {name.replace(".", "/"): p
+            for name, p in params.named_parameters()}
+
+
+def unflatten_params(params: nn.Module, flat) -> nn.Module:
+    """Copy ``flat`` (``/``-keyed tensors, as :func:`flatten_params` gives,
+    on any device) into the module's parameters of those names, in place;
+    every name, shape and dtype must match.  Returns the module."""
+    own = flatten_params(params)
+    if set(own) != set(flat):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(own) - set(flat))[:5]}, unexpected "
+                       f"{sorted(set(flat) - set(own))[:5]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            t = flat[name]
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want "
+                                 f"{tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    return params
 
 
 class AttentionParams(nn.Module):

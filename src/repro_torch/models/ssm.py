@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import rms_norm
+from .layers import lm_loss, remat, rms_norm
 from .params import (
     DTYPES,
     Mamba2Params,
@@ -127,13 +127,19 @@ class Mamba2LM:
         return init_mamba2_params(self.cfg, seed, device)
 
     def logits_fn(self, params: Mamba2Params, batch):
-        """Full-sequence forward → (logits (B,S,V), labels)."""
+        """Full-sequence forward → (logits (B,S,V), labels); under grad
+        each block is rematerialised (:func:`layers.remat`)."""
         tokens = batch["tokens"]
         x = params.embed[tokens.long()]
+        block = remat(mamba_block_train, self.cfg)
         for blk in params.blocks:
-            x = mamba_block_train(blk, self.cfg, x)
+            x = block(blk, self.cfg, x)
         x = rms_norm(x, params.final_norm)
         return x @ params.lm_head, tokens
+
+    def loss_fn(self, params: Mamba2Params, batch):
+        """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
+        return lm_loss(*self.logits_fn(params, batch))
 
     def init_cache(self, batch_size: int, max_len: int,
                    device=None) -> Dict[str, torch.Tensor]:

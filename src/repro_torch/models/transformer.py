@@ -25,7 +25,9 @@ from .layers import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    lm_loss,
     mrope_angles,
+    remat,
     rms_norm,
     rope_angles,
     update_kv_cache,
@@ -156,12 +158,20 @@ class DecoderLM:
 
     # ------------------------------------------------------------- train
     def logits_fn(self, params: DecoderParams, batch):
-        """Full-sequence forward → (logits (B,S,V), labels)."""
+        """Full-sequence forward → (logits (B,S,V), labels).  Under grad
+        each tail block is rematerialised (:func:`layers.remat`), as the
+        reference checkpoints its scanned body; the head blocks are not."""
         x, angles, labels = self._embed_inputs(params, batch)
-        for blk, kind, _, _ in self._layers(params):
-            x = block_train(blk, self.cfg, x, angles, kind)
+        tail = remat(block_train, self.cfg)
+        for blk, kind, prefix, _ in self._layers(params):
+            x = (tail if prefix == "" else block_train)(
+                blk, self.cfg, x, angles, kind)
         x = rms_norm(x, params.final_norm)
         return x @ params.lm_head, labels
+
+    def loss_fn(self, params: DecoderParams, batch):
+        """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
+        return lm_loss(*self.logits_fn(params, batch))
 
     # ------------------------------------------------------------ decode
     def init_cache(self, batch_size: int, max_len: int,

@@ -21,10 +21,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
 
-COPIED_DIRS = ("configs", "api", "core/smr", "core/structures", "runtime")
+COPIED_DIRS = ("configs", "api", "core/smr", "core/structures", "runtime",
+               "data")
 COPIED_FILES = ("core/__init__.py", "core/atomics.py", "core/workload.py",
                 "serving/policies.py", "serving/sampling.py",
-                "serving/faults.py", "serving/watchdog.py")
+                "serving/faults.py", "serving/watchdog.py",
+                "train/fault_tolerance.py")
 VERBATIM = sorted(
     [str(p.relative_to(REF)) for d in COPIED_DIRS
      for p in (REF / d).glob("*.py")] + list(COPIED_FILES))

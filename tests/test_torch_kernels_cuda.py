@@ -815,3 +815,62 @@ def test_sampler_tokens_on_the_card_equal_the_cpu(cuda_device, top_k,
         assert float(top2[i, 0] - top2[i, 1]) < 1e-3, i
     np.testing.assert_allclose(card_lps.cpu()[same].numpy(),
                                cpu_lps[same].numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal", [((2, 200, 200, 8, 2, 64), True),
+                                          ((2, 70, 300, 8, 8, 64), False)])
+def test_flash_under_grad_runs_the_kernel_with_the_plain_backward(
+        cuda_device, dtype, shape, causal):
+    """Under autograd a CUDA call goes through ``FlashAttentionFn``: one
+    kernel launch, the kernel call's bytes, and the plain version's
+    gradients byte for byte."""
+    q, k, v = [t.requires_grad_(True) for t in _on(
+        _flash_inputs(shape, 41), dtype, cuda_device)]
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        cuda_device).manual_seed(1), device=cuda_device).to(q.dtype)
+    variant = tfa.kernel_variant(q.dtype, shape[5], cuda_device)
+    before = tfa.launches.of(variant)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert tfa.launches.of(variant) == before + 1
+    assert type(out.grad_fn).__name__.startswith("FlashAttentionFn")
+    with torch.no_grad():
+        assert torch.equal(out, ops.flash_attention(q, k, v, causal=causal))
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(tfa.flash_attention_plain(
+        q, k, v, causal=causal), (q, k, v), dout)
+    for g, w in zip(got, want):
+        assert g.dtype == q.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d_skip", [False, True])
+def test_ssd_under_grad_runs_the_kernel_with_the_plain_backward(
+        cuda_device, dtype, d_skip):
+    """Under autograd a CUDA call goes through ``SSDScanFn`` (P 64, N 128,
+    chunk 128: the ``mma`` variant in bf16); the gradients of x, dt, a,
+    b, c and d_skip are the plain version's byte for byte, in each input's
+    dtype, and stay finite at a decay strong enough to overflow exp()
+    above the diagonal."""
+    shape = (2, 300, 4, 64, 1, 128)
+    arrays = _ssd_inputs(shape, 43, d_skip=d_skip, decay=8.0)
+    dt_ = getattr(torch, dtype)
+    ins = [torch.from_numpy(a).to(cuda_device, dt_ if i in (0, 3, 4)
+                                  else torch.float32).requires_grad_(True)
+           for i, a in enumerate(arrays)]
+    ds = ins[5] if d_skip else None
+    variant = tss.kernel_variant(dt_, 64, 128, 128, cuda_device)
+    before = tss.launches.of(variant)
+    y, _ = ops.ssd(*ins[:5], chunk=128, d_skip=ds)
+    assert tss.launches.of(variant) == before + 1
+    assert type(y.grad_fn).__name__.startswith("SSDScanFn")
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        cuda_device).manual_seed(2), device=cuda_device).to(y.dtype)
+    got = torch.autograd.grad(y, ins, dy)
+    want = torch.autograd.grad(tss.ssd_scan_plain(
+        *ins[:5], chunk=128, d_skip=ds)[0], ins, dy)
+    for g, w, t in zip(got, want, ins):
+        assert g.dtype == t.dtype and torch.equal(g, w)
+        assert torch.isfinite(g.float()).all()
