@@ -161,6 +161,11 @@ Phases, in order; each prints one line and any failure exits non-zero:
    kernel swapped for its plain version inside the phase (no launch);
    every gradient present and finite, wq / wk / wv and in_proj non-zero,
    each leaf within relative L2 1e-4 of the plain path's;
+16b-seeds. Mamba2-1.3B's fp32 gradients at seeds 0-3 (seed 0 is 16b's
+   weights and batch) beside an fp64 plain path (the module in fp64, the
+   SSD by its fp64 quadratic form): the kernel path's median and worst
+   per-leaf relative L2 distance to fp64 each at most ``GRAD_FP64_RATIO``
+   (2) times the plain fp32 path's, at every seed;
 16c. the ``Trainer`` on TinyLlama-1.1B at published widths in bf16,
    ``remat="full"``, AdamW, lr 3e-4, warmup 5, global batch 8 x 1024, 20
    steps: finite losses whose last five average at least 0.2 below the
@@ -170,11 +175,31 @@ Phases, in order; each prints one line and any failure exits non-zero:
    B 4 x 256): 20 steps with a checkpoint every 10, then step 10 restored
    and 10 replayed within rtol = atol = 2e-4 of the first run's losses;
    then a bf16 Trainer state saved and restored byte for byte;
-17. the kernel table as one JSON line (each row with the variant of the
+17. the distribution layer and the launchers (``--only 17`` runs
+   17a-17c):
+17a. the serve launcher (``launch.serve.main``) on TinyLlama-1.1B at
+   published widths in bf16, 8 requests: 8 completed, 0 failed, greedy
+   tokens equal to the same requests served straight through
+   ``serving.serve`` with the same weights and config, paged launches
+   22 x decode steps and packed launches 22 x prefill chunks;
+17b. TinyLlama-1.1B fp32, B 2 x 512, remat as configured, on a 1 x 1
+   NCCL mesh: one AdamW step of a ``Trainer`` with the mesh (DTensor
+   parameters, flash through ``local_map``) against the unsharded step
+   (loss rtol 2e-5, parameters rtol = atol 2e-4), 44 flash launches;
+   ``compressed_psum`` of the step's gradients byte-equal to the CPU's
+   quantization with ``residual == target - sent``; ``restore(mesh=...)``
+   byte-equal to the saved state; ``gpipe_forward`` (one stage, 22
+   blocks, 4 microbatches) byte-equal to the sequential stack;
+17c. the dry run in a subprocess (TinyLlama-1.1B x train_4k and
+   x decode_32k on the 16 x 16 fake mesh) and the roofline rows with the
+   H100 constants: positive FLOPs and bytes, 256 devices, an all-gather
+   on train; the records and rows are printed;
+18. the kernel table as one JSON line (each row with the variant of the
    main path; the paged row's launches count the verify chunks of phases
-   12 and 13b and the riders of phases 6 and 12, the flash row's those
-   of phases 10, 14a, 14b, 15a, 15b and 16b-16d, the SSD row's those of
-   phases 10 and 16b), the card line, and the result line
+   12 and 13b, the riders of phases 6 and 12 and the decode steps of
+   17a, the packed row's also 17a's prefill chunks, the flash row's
+   those of phases 10, 14a, 14b, 15a, 15b, 16b-16d and 17b, the SSD
+   row's those of phases 10 and 16b), the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--only 7,13c`` runs just those phases, for iterating on a few: it
@@ -2409,26 +2434,13 @@ def train_grad(torch, arch, b=2, s=512):
 
 
 def ssd_fp64(x, dt, a, b, c, *, chunk, d_skip=None):
-    """Mamba2's SSD in fp64 by its whole-sequence quadratic form:
-    y_t = sum over s <= t of exp(L_t - L_s) dt_s (C_t . B_s) x_s + D x_t,
-    L the running sum of dt a.  A measuring device of ``--grad-seeds``,
-    in ``ops.ssd``'s place; ``chunk`` is unused and no final state is
-    returned (the models discard it)."""
-    import torch
-    del chunk
+    """Mamba2's SSD in fp64 by its whole-sequence quadratic form
+    (``kernels.ref.ssd_quadratic``): a measuring device of
+    ``--grad-seeds``, in ``ops.ssd``'s place."""
+    from repro_torch.kernels.ref import ssd_quadratic
     x, dt, a, b, c = (t.double() for t in (x, dt, a, b, c))
-    hg = x.shape[2] // b.shape[2]
-    b, c = (t.repeat_interleave(hg, dim=2) for t in (b, c))  # (B,S,H,N)
-    run = (dt * a).cumsum(dim=1)                               # (B,S,H)
-    seg = run[:, :, None, :] - run[:, None, :, :]              # (B,T,S,H)
-    n = x.shape[1]
-    later = seg.new_ones((n, n), dtype=bool).tril()[None, :, :, None]
-    w = seg.masked_fill(~later, float("-inf")).exp() * dt[:, None] * \
-        torch.einsum("bthn,bshn->btsh", c, b)
-    y = torch.einsum("btsh,bshp->bthp", w, x)
-    if d_skip is not None:
-        y = y + x * d_skip.double()[None, None, :, None]
-    return y, None
+    return ssd_quadratic(x, dt, a, b, c, chunk=chunk, d_skip=None if
+                         d_skip is None else d_skip.double())
 
 
 def grad_noise(torch, seed, b=2, s=512):
@@ -2477,12 +2489,45 @@ def grad_noise(torch, seed, b=2, s=512):
     torch.cuda.empty_cache()
     top = "; ".join(f"{k}: {kp:.3g} / {ke:.3g} / {pe:.3g}, norm {nm:.3g}"
                     for kp, ke, pe, nm, k in rows[:3])
+    reading = {"seed": seed, "kernel_median": med[1], "plain_median": med[2],
+               "kernel_worst": max(r[1] for r in rows),
+               "plain_worst": max(r[2] for r in rows),
+               "kernel_worst_leaf": max(rows, key=lambda r: r[1])[4],
+               "plain_worst_leaf": max(rows, key=lambda r: r[2])[4]}
     return (f"mamba2-1.3b fp32 B={b} S={s} seed {seed}: relative L2 kernel "
             f"to plain / kernel to fp64 / plain to fp64, worst three leaves "
             f"by the first: {top}; worst over {len(rows)} leaves "
-            f"{rows[0][0]:.3g} / {max(r[1] for r in rows):.3g} / "
-            f"{max(r[2] for r in rows):.3g}; median {med[0]:.3g} / "
-            f"{med[1]:.3g} / {med[2]:.3g}, median norm {med[3]:.3g}")
+            f"{rows[0][0]:.3g} / {reading['kernel_worst']:.3g} / "
+            f"{reading['plain_worst']:.3g}; median {med[0]:.3g} / "
+            f"{med[1]:.3g} / {med[2]:.3g}, median norm {med[3]:.3g}"), \
+        reading
+
+
+# 16b-seeds: each fp32 path against the fp64 plain path, per leaf; the
+# kernel path's median and worst leaf may be at most this times the plain
+# fp32 path's (set before any run, the ratio of section 2's bf16 logits)
+GRAD_FP64_RATIO = 2.0
+GRAD_SEEDS = (0, 1, 2, 3)
+
+
+def grad_seed_hold(torch, seed):
+    """16b-seeds: Mamba2-1.3B's fp32 gradients at ``seed`` (seed 0 is
+    16b's weights and batch) held against the fp64 plain path: the kernel
+    path's median and worst per-leaf relative L2 distance each at most
+    :data:`GRAD_FP64_RATIO` times the plain fp32 path's.  Returns
+    (line, reading)."""
+    line, r = grad_noise(torch, seed)
+    for what in ("median", "worst"):
+        k, p = r[f"kernel_{what}"], r[f"plain_{what}"]
+        if not k <= GRAD_FP64_RATIO * p:
+            raise AssertionError(
+                f"16b-seeds seed {seed}: kernel path's {what} leaf at "
+                f"relative L2 {k:.3g} from fp64, above {GRAD_FP64_RATIO} x "
+                f"the plain fp32 path's {p:.3g}")
+    return (f"{line}; held: kernel / plain to fp64, median "
+            f"{r['kernel_median'] / r['plain_median']:.3f}x, worst "
+            f"{r['kernel_worst'] / r['plain_worst']:.3f}x (limit "
+            f"{GRAD_FP64_RATIO}x)"), r
 
 
 def train_full_width(torch, steps=20, b=8, s=1024):
@@ -2644,6 +2689,266 @@ def train_restart(torch, b=4, s=256):
         launches
 
 
+# ------------------------------------------------------ phases 17a-17c
+
+
+def serve_launcher(torch):
+    """17a: the serve launcher at TinyLlama-1.1B's published widths in bf16
+    (``launch.serve.main``: 8 prompts of 12 tokens, 8 new, chunked, the
+    reference's ServingConfig), held against the same requests run
+    straight through ``serving.serve`` with the same seeded weights and
+    config: 8 completed, 0 failed, identical greedy tokens, and every
+    paged launch a decode layer (22 x decode steps), every packed launch
+    a prefill layer (22 x prefill chunks).  Returns (summary, launches)."""
+    from repro_torch import serving
+    from repro_torch.kernels import packed_prefill, paged_attention
+    from repro_torch.launch import serve as launcher
+    argv = ["--no-reduced", "--dtype", "bfloat16", "--requests", "8"]
+    paged_attention.launches.reset()
+    packed_prefill.launches.reset()
+    t0 = time.perf_counter()
+    out = launcher.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches.count,
+                "packed_prefill_attention": packed_prefill.launches.count}
+    totals = out["totals"]
+    if totals["completed"] != 8 or totals["failed"]:
+        raise AssertionError(f"17a: completed {totals['completed']}, "
+                             f"failed {totals['failed']}, want 8 and 0")
+    cfg, model, params, config = launcher.setup(launcher.parse(argv))
+    want = {"paged_attention": cfg.n_layers * totals["decode_steps"],
+            "packed_prefill_attention":
+                cfg.n_layers * totals["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"17a: launches {launches}, want {want} (22 "
+                             f"a decode step, 22 a prefill chunk)")
+    with serving.serve(model, params, config, device=DEVICE) as session:
+        handles = session.submit_many(launcher.prompts(8), max_new_tokens=8)
+        direct = [h.result(timeout=300) for h in handles]
+    if out["tokens"] != direct:
+        diff = [i for i, (a, b) in enumerate(zip(out["tokens"], direct))
+                if a != b]
+        raise AssertionError(f"17a: the launcher's tokens differ from the "
+                             f"direct session's in requests {diff}")
+    del params
+    torch.cuda.empty_cache()
+    return {"name": out["name"], "completed": totals["completed"],
+            "failed": totals["failed"], "new_tokens": sum(
+                len(t) for t in out["tokens"]), "wall_s": wall,
+            "decode_steps": totals["decode_steps"],
+            "prefill_chunks": totals["prefill_chunks"],
+            "launches": launches, "tokens_equal_direct_session": True}, \
+        launches
+
+
+def _nccl_group(tmp):
+    """A one-rank NCCL process group (a file store in ``tmp``)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+
+
+def sharded_step(torch, b=2, s=512):
+    """17b: TinyLlama-1.1B at published widths in fp32 (remat as
+    configured) on a 1 x 1 NCCL mesh.  One AdamW step of a ``Trainer`` with
+    the mesh (DTensor parameters by ``shard_params``, flash through
+    ``local_map``) against the unsharded ``Trainer`` step on the same
+    batch: loss rtol 2e-5, parameters rtol = atol 2e-4 (the reference's
+    ``test_sharded_train_step_matches_single_device``), exactly 22 x 2
+    flash launches in the sharded step; ``compressed_psum`` on that step's
+    gradient leaves gives int8 blocks and scales byte-equal to the CPU's
+    and ``residual == target - sent`` exactly; ``restore(mesh=...)`` of
+    the sharded state byte-equal to what was saved; ``gpipe_forward`` with
+    one stage over the 22 blocks in 4 microbatches byte-equal to running
+    each microbatch through the blocks in order.  Returns (summary,
+    launches)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager, \
+        flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import flatten_params
+    from repro_torch.models.transformer import block_train
+    from repro_torch.models.layers import rope_angles
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.pipeline import gpipe_forward
+    from repro_torch.parallel.sharding import resolve
+    from repro_torch.train.loop import Trainer
+    cfg = get_config("tinyllama-1.1b").replace(dtype="float32")
+    out = {"remat": cfg.remat}
+    with tempfile.TemporaryDirectory() as tmp:
+        _nccl_group(tmp)
+        try:
+            mesh = make_mesh((1, 1), device_type="cuda")
+
+            def trainer(m):
+                return Trainer(cfg, global_batch=b, seq_len=s, lr=3e-4,
+                               warmup=0, device=DEVICE, mesh=m)
+            plain = trainer(None)
+            st = plain.train(plain.init_state(), 1)
+            plain.close()
+            sh = trainer(mesh)
+            grads = {}
+            update = sh.optimizer.update
+
+            def keep(g, state, params):     # the step's gradient leaves
+                grads.update(g)
+                return update(g, state, params)
+            sh.optimizer.update = keep
+            reset_launches()
+            t0 = time.perf_counter()
+            st_sh = sh.train(sh.init_state(), 1)
+            torch.cuda.synchronize()
+            out["sharded_step_s"] = time.perf_counter() - t0
+            launches = read_launches()
+            sh.close()
+            if launches != {"flash_attention": 2 * cfg.n_layers,
+                            "ssd_scan": 0}:
+                raise AssertionError(f"17b: sharded step launches "
+                                     f"{launches}, want 44 flash")
+            np.testing.assert_allclose(sh.losses[0], plain.losses[0],
+                                       rtol=2e-5)
+            ref = {k: v.detach() for k, v in
+                   flatten_params(st.params).items()}
+            full = {k: v.detach().full_tensor() for k, v in
+                    flatten_params(st_sh.params).items()}
+            worst = 0.0
+            for k, v in full.items():
+                torch.testing.assert_close(v, ref[k], rtol=2e-4, atol=2e-4)
+                worst = max(worst, float(((v - ref[k]).abs() / (
+                    2e-4 + 2e-4 * ref[k].abs())).max()))
+            out.update(loss=sh.losses[0], plain_loss=plain.losses[0],
+                       param_worst_share_of_limit=worst)
+            del st, ref, full, plain
+            # int8 error-feedback all-reduce of the step's gradients
+            t0 = time.perf_counter()
+            n_blocks = 0
+            for k, g in grads.items():
+                g = g.to_local().float()
+                zero = torch.zeros_like(g)
+                reduced, resid = col.compressed_psum(g, None, zero)
+                q, sc = col.quantize_int8(g)
+                qc, scc = col.quantize_int8(g.cpu())
+                sent = col.dequantize_int8(qc, scc, g.shape)
+                if not (torch.equal(q.cpu(), qc) and torch.equal(
+                        sc.cpu(), scc) and torch.equal(
+                        resid.cpu(), g.cpu() - sent) and torch.equal(
+                        reduced.cpu(), sent)):
+                    raise AssertionError(f"17b: compressed_psum of {k} "
+                                         f"differs from the CPU's")
+                n_blocks += q.shape[0]
+            out["compressed_leaves"] = len(grads)
+            out["int8_blocks"] = n_blocks
+            out["compress_check_s"] = time.perf_counter() - t0
+            del grads
+            # elastic restore onto the mesh
+            t0 = time.perf_counter()
+            ckpt = CheckpointManager(f"{tmp}/ckpt", async_save=False)
+            flat = flatten_params(st_sh.params)
+            ckpt.save(1, flat, st_sh.opt_state, param_specs=sh.specs)
+            opt_specs = sh.optimizer.abstract_state(
+                flatten_params(sh.model.abstract_params()[0]),
+                sh.specs)[1]
+            rp, ro, _ = ckpt.restore(1, mesh=mesh, param_specs=sh.specs,
+                                     opt_specs=opt_specs,
+                                     resolve_fn=resolve)
+            saved = dict(flatten_tree(flat))
+            saved.update({f"opt/{k}": v for k, v in
+                          flatten_tree(st_sh.opt_state).items()})
+            got = dict(flatten_tree(rp))
+            got.update({f"opt/{k}": v for k, v in
+                        flatten_tree(ro).items()})
+            if set(got) != set(saved):
+                raise AssertionError("17b: restored keys differ")
+            for k, v in saved.items():
+                a = v.full_tensor() if hasattr(v, "full_tensor") else v
+                r = got[k]
+                if not hasattr(r, "full_tensor") or not torch.equal(
+                        r.full_tensor(), a):
+                    raise AssertionError(f"17b: restored {k} differs or "
+                                         f"is not on the mesh")
+            out["restored_leaves"] = len(saved)
+            out["save_restore_s"] = time.perf_counter() - t0
+            del rp, ro, saved, got, flat, st_sh
+            # GPipe, one stage: the schedule against the sequential stack
+            model = sh.model
+            params = model.init(0, DEVICE)
+            toks = torch.from_numpy(np.random.RandomState(17).randint(
+                0, cfg.vocab_size, (4, s))).to(DEVICE)
+            x = params.embed[toks.long()][:, None]          # (M, 1, S, d)
+            ang = rope_angles(torch.arange(s, device=DEVICE)[None, :],
+                              cfg.head_dim, cfg.rope_theta)
+
+            def block_fn(lp, h):
+                return block_train(params.blocks[int(lp["i"])], cfg, h,
+                                   ang, "dense")
+            reset_launches()
+            with torch.no_grad():
+                staged = {"i": torch.arange(cfg.n_layers).reshape(1, -1)}
+                piped = gpipe_forward(block_fn, None, n_microbatches=4)(
+                    staged, x)
+                seq = []
+                for mb in x:
+                    h = mb
+                    for i in range(cfg.n_layers):
+                        h = block_fn({"i": torch.tensor(i)}, h)
+                    seq.append(h)
+            pipe_launches = read_launches()
+            if not torch.equal(piped, torch.stack(seq)):
+                raise AssertionError("17b: gpipe_forward differs from the "
+                                     "sequential stack")
+            out["gpipe_launches"] = pipe_launches["flash_attention"]
+            del params, piped, seq
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["flash_launches"] = launches["flash_attention"]
+    out["flash_wgmma"] = fa.launches.of("wgmma")
+    return out, launches
+
+
+def dryrun_records(torch):
+    """17c: the dry run in a subprocess of its own (the fake process group
+    cannot share a process with NCCL): TinyLlama-1.1B x train_4k and x
+    decode_32k on the 16 x 16 fake mesh, then the roofline rows with the
+    H100 constants.  Holds positive FLOPs and bytes, 256 devices and at
+    least one all-gather on train.  Returns (records, roofline text)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        code = (
+            "import sys\n"
+            "from repro_torch.launch import dryrun, roofline\n"
+            "for shape in ('train_4k', 'decode_32k'):\n"
+            "    assert dryrun.main(['--arch', 'tinyllama-1.1b', '--shape',"
+            " shape, '--out', sys.argv[1]]) == 0\n"
+            "roofline.main(['--records', sys.argv[1], '--out', "
+            "sys.argv[1] + '/roofline.md'])\n")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run([sys.executable, "-c", code, tmp],
+                              capture_output=True, text=True, env=env,
+                              timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            raise AssertionError(f"17c: the dry run failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        recs = {}
+        for shape in ("train_4k", "decode_32k"):
+            with open(f"{tmp}/tinyllama-1.1b__{shape}__pod1__baseline"
+                      f".json") as f:
+                recs[shape] = json.load(f)
+        with open(f"{tmp}/roofline.md") as f:
+            table = f.read()
+    for shape, r in recs.items():
+        if not (r["flops_per_device"] > 0 and
+                r["bytes_accessed_per_device"] > 0 and
+                r["n_chips"] == 256):
+            raise AssertionError(f"17c {shape}: {r}")
+    if recs["train_4k"]["collectives"]["all-gather"]["count"] < 1:
+        raise AssertionError("17c: no all-gather on train")
+    return recs, table
+
+
 # phase 7's rows at the models' own attention shapes: (Hkv, S, shape)
 FLASH_MODEL_CASES = [
     # DeepSeek-V2's MLA prefill (D 192 = nope 128 + rope 64)
@@ -2657,8 +2962,8 @@ FLASH_MODEL_CASES = [
 ]
 
 PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
-          "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b", "16c",
-          "16d")
+          "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b",
+          "16b-seeds", "16c", "16d", "17a", "17b", "17c")
 
 
 def parse_only(argv):
@@ -2671,7 +2976,9 @@ def parse_only(argv):
         raise SystemExit("usage: chip_smoke.py [--only PHASE,PHASE,...]")
     only = set(argv[1].split(","))
     if "16" in only:
-        only = (only - {"16"}) | {"16a", "16b", "16c", "16d"}
+        only = (only - {"16"}) | {"16a", "16b", "16b-seeds", "16c", "16d"}
+    if "17" in only:
+        only = (only - {"17"}) | {"17a", "17b", "17c"}
     if not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}; "
                          f"known: {', '.join(PHASES)}")
@@ -2710,7 +3017,7 @@ def main(argv) -> int:
     if seeds is not None:
         for seed in seeds:
             t0 = time.perf_counter()
-            say(f"[grad seeds] {grad_noise(torch, seed)} [{card}] "
+            say(f"[grad seeds] {grad_noise(torch, seed)[0]} [{card}] "
                 f"{time.perf_counter() - t0:.1f} s")
         say(card)
         return 0
@@ -2906,6 +3213,10 @@ def main(argv) -> int:
         add(path_launches)
         say(f"[16b full-width gradient] {line} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
+    for seed in GRAD_SEEDS if on("16b-seeds") else ():
+        t0 = time.perf_counter()
+        line, _ = grad_seed_hold(torch, seed)
+        say(f"[16b-seeds] {line} [{card}] {time.perf_counter() - t0:.1f} s")
     if on("16c"):
         t0 = time.perf_counter()
         summary, path_launches = train_full_width(torch)
@@ -2918,6 +3229,28 @@ def main(argv) -> int:
         add(path_launches)
         say(f"[16d checkpoint restart] {line} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
+
+    if on("17a"):
+        t0 = time.perf_counter()
+        summary, path_launches = serve_launcher(torch)
+        add(path_launches)
+        say(f"[17a serve launcher] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+    if on("17b"):
+        t0 = time.perf_counter()
+        summary, path_launches = sharded_step(torch)
+        add(path_launches)
+        say(f"[17b sharded step] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+    if on("17c"):
+        t0 = time.perf_counter()
+        recs, table = dryrun_records(torch)
+        for shape, rec in recs.items():
+            say(f"[17c dry run {shape}] {json.dumps(rec)}")
+        for line in table.splitlines():
+            if line.startswith("| tinyllama"):
+                say(f"[17c roofline H100] {line}")
+        say(f"[17c dry run] {time.perf_counter() - t0:.1f} s")
 
     if only is None:
         table = []

@@ -30,7 +30,10 @@ chosen openly by :func:`kernel_variant` from the dtype and the head dim:
   other D: the first version, fp32 FMAs from shared memory.
 
 Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
-CPU tensor runs :func:`flash_attention_plain`.  There is no fallback.
+CPU tensor runs :func:`flash_attention_plain`, and so does a ``meta``
+tensor (the dry run's abstract device, where nothing runs).  There is no
+fallback.  DTensor inputs run on their local shards through ``local_map``
+(:mod:`.sharded`), sharded at most over batch and heads.
 
 Gradients: the kernels are forward-only, as the TPU kernel is (the JAX
 trainer differentiates the jnp mirror ``layers.blockwise_attention``).
@@ -48,7 +51,8 @@ import math
 
 import torch
 
-from . import build, ref
+from ..parallel.dtensor_ops import is_dtensor
+from . import build, ref, sharded
 
 MAX_HEAD_DIM = 192   # the FMA kernel's register tile covers D <= 192
 TC_HEAD_DIMS = (64, 128, 192)
@@ -180,14 +184,33 @@ def flash_attention(q, k, v, *, causal: bool):
     online softmax with scale 1/sqrt(D).  ``causal=True`` needs Sq == Sk.
 
     CUDA tensors launch the kernel (through :class:`FlashAttentionFn`
-    when grad mode is on and an input requires grad); CPU tensors run the
-    plain version."""
+    when grad mode is on and an input requires grad); CPU and ``meta``
+    tensors run the plain version; DTensors run the same on their local
+    shards (:func:`_flash_sharded`)."""
+    if is_dtensor(q):
+        return _flash_sharded(q, k, v, causal)
     if q.is_cuda:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
             return FlashAttentionFn.apply(q, k, v, causal,
                                           flash_attention_cuda)
         return flash_attention_cuda(q, k, v, causal=causal)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return flash_attention_plain(q, k, v, causal=causal)
+
+
+def _flash_sharded(q, k, v, causal: bool):
+    """Attention of DTensors on their local shards: each mesh dimension
+    keeps q's batch or head split where the sizes allow it (heads only if
+    H and Hkv both divide, so every local q head finds its kv head) and
+    replicates otherwise; k, v and the output follow q."""
+    b, _, h, _ = q.shape
+    hkv = k.shape[2]
+    dims = sharded.split_dims(
+        q, (0, 2), lambda d, n: b % n == 0 if d == 0 else
+        h % n == 0 and hkv % n == 0)
+    return sharded.run_local(
+        lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=causal),
+        (q, k, v), (dims, dims, dims), (dims,), q.device_mesh)

@@ -148,6 +148,28 @@ def ssd_ref(x, dt, a, b, c, chunk: int = 128, d_skip=None,
     return y.to(x.dtype), state
 
 
+def ssd_quadratic(x, dt, a, b, c, chunk: int = 128, d_skip=None):
+    """Mamba2 SSD by its whole-sequence quadratic form in the inputs'
+    dtype: y_t = sum over s <= t of exp(L_t - L_s) dt_s (C_t . B_s) x_s
+    + D x_t, L the running sum of dt a.  Given fp64 inputs it is the
+    fp64 path the fp32 gradient holds measure against.  ``chunk`` is
+    accepted for signature parity and unused; no final state is returned
+    (``None``)."""
+    del chunk
+    hg = x.shape[2] // b.shape[2]
+    b, c = (t.repeat_interleave(hg, dim=2) for t in (b, c))  # (B,S,H,N)
+    run = (dt * a).cumsum(dim=1)                               # (B,S,H)
+    seg = run[:, :, None, :] - run[:, None, :, :]              # (B,T,S,H)
+    n = x.shape[1]
+    later = seg.new_ones((n, n), dtype=torch.bool).tril()[None, :, :, None]
+    w = seg.masked_fill(~later, float("-inf")).exp() * dt[:, None] * \
+        torch.einsum("bthn,bshn->btsh", c, b)
+    y = torch.einsum("btsh,bshp->bthp", w, x)
+    if d_skip is not None:
+        y = y + x * d_skip[None, None, :, None]
+    return y, None
+
+
 def ssd_chunked_ref(x, dt, a, b, c, chunk: int = 128, d_skip=None,
                     initial_state=None):
     """The chunked (dual) form: the parallel algorithm the kernel tiles.

@@ -26,7 +26,10 @@ Two variants, chosen openly by :func:`kernel_variant`:
   other shape: the first version, fp32 FMAs from shared memory.
 
 Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
-CPU tensor runs :func:`ssd_scan_plain`.  There is no fallback.
+CPU tensor runs :func:`ssd_scan_plain`, and so does a ``meta`` tensor (the
+dry run's abstract device).  There is no fallback.  DTensor inputs run on
+their local shards through ``local_map`` (:mod:`.sharded`), sharded at
+most over batch and heads (with the groups).
 
 Gradients: the kernels are forward-only, as the TPU kernel is (the JAX
 trainer differentiates ``ref.ssd_chunked_ref``).  Under autograd a CUDA
@@ -41,7 +44,8 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from ..parallel.dtensor_ops import is_dtensor
+from . import build, ref, sharded
 
 MAX_CHUNK = 128   # the kernel's score strips cover 128 key columns
 MAX_HEAD_DIM = 128   # P
@@ -182,14 +186,41 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, d_skip=None):
     optional → (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32).
 
     CUDA tensors launch the kernel (through :class:`SSDScanFn` when grad
-    mode is on and an input requires grad); CPU tensors run the plain
-    version."""
+    mode is on and an input requires grad); CPU and ``meta`` tensors run
+    the plain version; DTensors run the same on their local shards
+    (:func:`_ssd_sharded`)."""
+    if is_dtensor(x):
+        return _ssd_sharded(x, dt, a, b, c, chunk, d_skip)
     if x.is_cuda:
         ins = (x, dt, a, b, c, d_skip)
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in ins):
             return SSDScanFn.apply(*ins, chunk, ssd_scan_cuda)
         return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cpu", "meta"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     return ssd_scan_plain(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
+
+
+def _ssd_sharded(x, dt, a, b, c, chunk, d_skip):
+    """The scan of DTensors on their local shards: each mesh dimension
+    keeps x's batch or head split where the sizes allow it (heads only
+    with the groups split alike, or a single group replicated) and
+    replicates otherwise; dt, a, b, c, d_skip and the outputs follow."""
+    bsz, _, h, _ = x.shape
+    g = b.shape[2]
+    dims = sharded.split_dims(
+        x, (0, 2), lambda d, n: bsz % n == 0 if d == 0 else
+        h % n == 0 and (g % n == 0 or g == 1))
+    heads = {0: None, 2: 0, None: None}         # a, d_skip: (H,)
+    groups = {0: 0, 2: None if g == 1 else 2, None: None}
+    final = {0: 0, 2: 1, None: None}            # (B, H, P, N)
+    vec = [heads[d] for d in dims]
+    return sharded.run_local(
+        lambda x, dt, a, b, c, d: ssd_scan(
+            x.contiguous(), dt, a, b.contiguous(), c.contiguous(),
+            chunk=chunk, d_skip=d),
+        (x, dt, a, b, c, d_skip),
+        (dims, dims, vec, [groups[d] for d in dims],
+         [groups[d] for d in dims], None if d_skip is None else vec),
+        (dims, [final[d] for d in dims]), x.device_mesh)

@@ -27,9 +27,11 @@ from typing import Dict
 
 import torch
 
+from ..parallel.sharding import constrain
 from .layers import (
     blockwise_attention,
     decode_attention,
+    embed,
     gelu_mlp,
     layer_norm,
     lm_loss,
@@ -37,8 +39,9 @@ from .layers import (
     sinusoidal_positions,
     update_kv_cache,
 )
-from .params import DTYPES, WhisperParams, init_whisper_params, \
-    resolve_device
+from .params import (DTYPES, WhisperParams, abstract_params,
+                     init_whisper_params, meta, resolve_device,
+                     token_inputs)
 
 
 def _mha(p, cfg, xq, xkv, causal: bool):
@@ -84,6 +87,11 @@ class WhisperEncDec:
         """Seeded weights on ``device`` (``None`` = the card)."""
         return init_whisper_params(self.cfg, seed, device)
 
+    def abstract_params(self):
+        """``(params, specs)``: the parameters on ``meta`` and their logical
+        axes (:func:`repro_torch.models.params.abstract_params`)."""
+        return abstract_params(self.cfg)
+
     # -------------------------------------------------------------- paths
     def _encode(self, params: WhisperParams, frames):
         """frames (B, enc_seq, d) → the memory (B, enc_seq, d): sinusoidal
@@ -92,6 +100,7 @@ class WhisperEncDec:
         cfg = self.cfg
         x = frames.to(self.dtype) + sinusoidal_positions(
             frames.shape[1], cfg.d_model, frames.device).to(self.dtype)
+        x = constrain(x, "batch", "seq", "act_embed")
         block = remat(_encoder_block, cfg)
         for blk in params.enc_blocks:
             x = block(blk, cfg, x)
@@ -104,14 +113,16 @@ class WhisperEncDec:
         cfg = self.cfg
         memory = self._encode(params, batch["frames"])
         tokens = batch["tokens"]
-        x = params.embed[tokens.long()]
+        x = embed(params.embed, tokens)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
+        x = constrain(x, "batch", "seq", "act_embed")
         block = remat(_decoder_block, cfg)
         for blk in params.dec_blocks:
             x = block(blk, cfg, x, memory)
         x = layer_norm(x, params.dec_norm_s, params.dec_norm_b)
-        return x @ params.lm_head, tokens
+        return constrain(x @ params.lm_head, "batch", "seq", "act_vocab"), \
+            tokens
 
     def loss_fn(self, params: WhisperParams, batch):
         """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
@@ -131,6 +142,27 @@ class WhisperEncDec:
                                   dtype=self.dtype, device=dev)
                 for name, s in shapes.items()}
 
+    def cache_specs(self) -> Dict[str, tuple]:
+        """The logical axes of each :meth:`init_cache` entry."""
+        kv = ("layers", "batch", "decode_seq", "act_kv_heads", "head_dim")
+        cross = ("layers", "batch", None, "act_kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
+
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """``meta`` stand-ins of every model input (the dry run): frames
+        (B, enc_seq, d) beside the tokens to train or prefill."""
+        out = token_inputs(shape)[0]
+        if shape.kind in ("train", "prefill"):
+            out = {"frames": meta((shape.global_batch, self.cfg.enc_seq,
+                                   self.cfg.d_model), self.dtype), **out}
+        return out
+
+    def input_axes(self, shape) -> Dict[str, tuple]:
+        out = token_inputs(shape)[1]
+        if shape.kind in ("train", "prefill"):
+            out = {"frames": ("batch", "seq", None), **out}
+        return out
+
     def decode_step(self, params: WhisperParams, cache, batch):
         """One token for every sequence.  batch: tokens (B,1), cache_len
         (B,) including the new token.  Returns (logits (B,V), cache); the
@@ -139,7 +171,7 @@ class WhisperEncDec:
         cache_len = batch["cache_len"]
         b = batch["tokens"].shape[0]
         h, hd = cfg.n_heads, cfg.head_dim
-        x = params.embed[batch["tokens"].long()]             # (B,1,d)
+        x = embed(params.embed, batch["tokens"])             # (B,1,d)
         # the sinusoidal position of the new token, in fp32
         pos = (cache_len - 1).float()[:, None]
         i = torch.arange(cfg.d_model // 2, dtype=torch.float32,
@@ -165,4 +197,5 @@ class WhisperEncDec:
             x = x + out.reshape(b, 1, -1) @ blk.cross.wo
             x = x + _ffn(blk.ffn, layer_norm(x, blk.ln2_s, blk.ln2_b))
         x = layer_norm(x, params.dec_norm_s, params.dec_norm_b)
-        return x[:, 0] @ params.lm_head, cache
+        return constrain(x[:, 0] @ params.lm_head, "batch", "act_vocab"), \
+            cache

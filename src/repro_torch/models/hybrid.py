@@ -15,18 +15,22 @@ from typing import Dict
 
 import torch
 
+from ..parallel.sharding import constrain
 from .layers import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    embed,
     lm_loss,
     remat,
     rms_norm,
     rope_angles,
     update_kv_cache,
 )
-from .params import DTYPES, Zamba2Params, init_zamba2_params, resolve_device
-from .ssm import init_ssm_cache, mamba_block_decode, mamba_block_train
+from .params import (DTYPES, Zamba2Params, abstract_params,
+                     init_zamba2_params, resolve_device, token_inputs)
+from .ssm import (SSM_CACHE_SPECS, init_ssm_cache, mamba_block_decode,
+                  mamba_block_train)
 from .transformer import _qkv, ffn_apply
 
 
@@ -45,6 +49,11 @@ class Zamba2LM:
     def init(self, seed: int = 0, device=None) -> Zamba2Params:
         """Seeded weights on ``device`` (``None`` = the card)."""
         return init_zamba2_params(self.cfg, seed, device)
+
+    def abstract_params(self):
+        """``(params, specs)``: the parameters on ``meta`` and their logical
+        axes (:func:`repro_torch.models.params.abstract_params`)."""
+        return abstract_params(self.cfg)
 
     # -------------------------------------------------------- shared attn
     def _shared_train(self, p, x, angles):
@@ -70,7 +79,8 @@ class Zamba2LM:
         rematerialised (:func:`layers.remat`), as the reference."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = params.embed[tokens.long()]
+        x = constrain(embed(params.embed, tokens), "batch", "seq",
+                      "act_embed")
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
         angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         shared = remat(self._shared_train, cfg)
@@ -80,7 +90,8 @@ class Zamba2LM:
             for blk in params.blocks[off:off + size]:
                 x = block(blk, cfg, x)
         x = rms_norm(x, params.final_norm)
-        return x @ params.lm_head, tokens
+        return constrain(x @ params.lm_head, "batch", "seq", "act_vocab"), \
+            tokens
 
     def loss_fn(self, params: Zamba2Params, batch):
         """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
@@ -102,13 +113,26 @@ class Zamba2LM:
                                       device=dev)
         return cache
 
+    def cache_specs(self) -> Dict[str, tuple]:
+        """The logical axes of each :meth:`init_cache` entry."""
+        kv = ("layers", "batch", "decode_seq", "act_kv_heads", "head_dim")
+        return dict(SSM_CACHE_SPECS, attn_k=kv, attn_v=kv)
+
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """``meta`` stand-ins of every model input (the dry run)."""
+        return token_inputs(shape)[0]
+
+    def input_axes(self, shape) -> Dict[str, tuple]:
+        return token_inputs(shape)[1]
+
     def decode_step(self, params: Zamba2Params, cache, batch):
         """One token for every sequence.  batch: tokens (B,1), cache_len
         (B,) including the new token.  Returns (logits (B,V), cache); the
         cache is updated in place."""
         cfg = self.cfg
         cache_len = batch["cache_len"]
-        x = params.embed[batch["tokens"].long()]               # (B,1,d)
+        x = constrain(embed(params.embed, batch["tokens"]),    # (B,1,d)
+                      "batch", None, "act_embed")
         angles = rope_angles((cache_len - 1)[:, None], cfg.head_dim,
                              cfg.rope_theta)
         for site, (off, size) in enumerate(self.groups):
@@ -118,4 +142,5 @@ class Zamba2LM:
                 x = mamba_block_decode(params.blocks[i], cfg, x,
                                        cache["ssm"][i], cache["conv"][i])
         x = rms_norm(x, params.final_norm)
-        return x[:, 0] @ params.lm_head, cache
+        return constrain(x[:, 0] @ params.lm_head, "batch", "act_vocab"), \
+            cache

@@ -11,6 +11,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel import dtensor_ops
+from ..parallel.dtensor_ops import is_dtensor, unshard
+from ..parallel.sharding import constrain, split_dim
 
 # ----------------------------------------------------------------- norms
 
@@ -30,6 +33,29 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     out = (x32 - mean) * torch.rsqrt(var + eps)
     return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------- embedding
+
+
+def embed(table, tokens):
+    """Rows of ``table`` (V, d) at ``tokens`` (the reference's
+    ``jnp.take``).  A DTensor table is gathered over the vocabulary
+    first: DTensor's rules for a lookup in a vocabulary shard fail on
+    torch 2.11 (the index's backward) and 2.13 (batch-split tokens)."""
+    return F.embedding(tokens.long(), unshard(table, 0))
+
+
+def zero_pad(x, dim: int, before: int = 0, after: int = 0):
+    """``x`` with ``before`` / ``after`` zeros along ``dim``, by
+    concatenation (torch 2.11's DTensor rule for ``F.pad`` returns one
+    placement on a 2-D mesh)."""
+    dim %= x.ndim
+
+    def zeros(n):
+        shape = x.shape[:dim] + (n,) + x.shape[dim + 1:]
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    return torch.cat([zeros(before), x, zeros(after)], dim=dim)
 
 
 # ----------------------------------------------------------------- rotary
@@ -106,22 +132,37 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     b, s, hkv, d = k_cache.shape
     h = q.shape[1]  # q: (B, H, D)
     g = h // hkv
-    qg = q.reshape(b, hkv, g, d).float() * (1.0 / math.sqrt(d))
-    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    qg = split_dim(q, 1, hkv, g).float() * (1.0 / math.sqrt(d))
     mask = torch.arange(s, device=q.device)[None, :] < \
         cache_len.long()[:, None]
+    if is_dtensor(k_cache):
+        return dtensor_ops.decode_attention(qg, k_cache, v_cache, mask) \
+            .reshape(b, 1, h, d).to(q.dtype)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
     scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def write_rows(cache, new, pos):
+    """``cache[b, pos[b]] = new[b]`` for every row ``b`` of a (B, S, ...)
+    cache, in place (a DTensor cache, its sequence sharded as
+    ``decode_seq`` is, by :func:`dtensor_ops.write_rows`)."""
+    new = new.to(cache.dtype)
+    if is_dtensor(cache):
+        return dtensor_ops.write_rows(cache, new, pos)
+    cache[torch.arange(cache.shape[0], device=cache.device),
+          pos.long()] = new
+    return cache
+
+
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     """Write one new token's K/V at per-sequence position ``pos`` (B,), in
-    place (the reference returns updated copies)."""
-    bidx = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[bidx, pos.long()] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos.long()] = v_new[:, 0].to(v_cache.dtype)
+    place (the reference returns updated copies); see
+    :func:`write_rows`."""
+    write_rows(k_cache, k_new[:, 0], pos)
+    write_rows(v_cache, v_new[:, 0], pos)
     return k_cache, v_cache
 
 
@@ -132,7 +173,8 @@ def gelu_mlp(x, wi, bi, wo, bo):
     """GELU MLP with biases.  ``jax.nn.gelu`` defaults to the tanh
     approximation, so this is ``approximate="tanh"`` (torch's default, the
     erf form, differs by up to ~1e-3)."""
-    return F.gelu(x @ wi + bi, approximate="tanh") @ wo + bo
+    h = F.gelu(x @ wi + bi, approximate="tanh")
+    return constrain(h, "batch", "seq", "act_mlp") @ wo + bo
 
 
 # ----------------------------------------------------------- loss / head
@@ -146,7 +188,10 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     mask = labels != ignore_id
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if is_dtensor(logits):
+        gold = dtensor_ops.gold_logit(logits, safe)
+    else:
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     count = mask.sum().clamp(min=1)
     return nll.sum() / count, count

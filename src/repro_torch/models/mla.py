@@ -15,9 +15,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
-from .layers import apply_rope, blockwise_attention, rms_norm, rope_angles
+from .layers import (apply_rope, blockwise_attention, rms_norm,
+                     rope_angles, write_rows, zero_pad)
 
 
 def _project_q(p, cfg, x, positions):
@@ -53,7 +53,7 @@ def mla_attention_train(p, cfg, x, positions):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope)],
                   dim=-1)
     # V padded up to the QK head dim, so one kernel serves both products
-    v = F.pad(v, (0, nope + rope - vdim))
+    v = zero_pad(v, -1, after=nope + rope - vdim)
     out = blockwise_attention(q.contiguous(), k.contiguous(),
                               v.contiguous(), causal=True)
     out = out[..., :vdim].reshape(b, s, h * vdim)
@@ -72,10 +72,9 @@ def mla_attention_decode(p, cfg, x, cache_ckv, cache_krope, cache_len,
     rank = cfg.kv_lora_rank
     q_nope, q_rope = _project_q(p, cfg, x, positions)       # (B, 1, H, .)
     c_new, kr_new = _project_kv_latent(p, cfg, x, positions)
-    bidx = torch.arange(b, device=x.device)
-    pos = (cache_len - 1).long()                             # write slot
-    cache_ckv[bidx, pos] = c_new[:, 0].to(cache_ckv.dtype)
-    cache_krope[bidx, pos] = kr_new[:, 0].to(cache_krope.dtype)
+    pos = cache_len - 1                                      # write slot
+    write_rows(cache_ckv, c_new[:, 0], pos)
+    write_rows(cache_krope, kr_new[:, 0], pos)
 
     w_uk = p.w_uk.reshape(rank, h, nope).float()
     # absorb: q' = q_nope · W_uk → (B, H, rank)

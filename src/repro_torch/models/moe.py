@@ -8,13 +8,23 @@ a kept slot receives exactly one token and a dropped (token, choice) adds
 zeros, so the buffer does not depend on the order of the adds.  The expert
 SwiGLUs are batched products (``torch.bmm``; the reference leaves its
 einsums to XLA, outside any Pallas kernel).  Shared experts (DeepSeek-V2)
-are a plain SwiGLU added to the routed output.  On one device the
-reference's sharding constraints are no-ops and are left out."""
+are a plain SwiGLU added to the routed output.  The reference's sharding
+constraints on the dispatch buffer and the experts' output are kept; on
+one device they are no-ops.  On DTensors the routed FFN runs replicated
+(:func:`parallel.dtensor_ops.replicated`): the capacity dispatch's
+scatter, cumsum and gather over a split token axis have no DTensor rule
+that keeps the reference's global token order, so the port does not
+split experts (the reference's EP) under a mesh."""
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
+
+from ..parallel import dtensor_ops
+from ..parallel.sharding import constrain
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -40,7 +50,14 @@ def route(p, cfg, xf):
 
 
 def apply_moe_ffn(p, cfg, x):
-    """x (B, S, D) → (B, S, D); ``p`` a :class:`MoEFFNParams`."""
+    """x (B, S, D) → (B, S, D); ``p`` a :class:`MoEFFNParams` (or the same
+    leaves as plain attributes)."""
+    if dtensor_ops.is_dtensor(x):
+        names = p.NAMES + (p.SHARED if p.shared else ())
+        return dtensor_ops.replicated(
+            lambda xf, **w: apply_moe_ffn(
+                SimpleNamespace(shared=p.shared, **w), cfg, xf),
+            x, {n: getattr(p, n) for n in names})
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -52,9 +69,10 @@ def apply_moe_ffn(p, cfg, x):
     contrib = xf[:, None, :] * keep[..., None].to(x.dtype)   # (T, k, D)
     buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot, contrib.reshape(t * k, d))
-    buf = buf.reshape(e, cap, d)
+    buf = constrain(buf.reshape(e, cap, d), "act_experts", None, None)
     h = F.silu(torch.bmm(buf, p.wi_gate)) * torch.bmm(buf, p.wi_up)
-    out = torch.bmm(h, p.wo).reshape(e * cap, d)
+    out = constrain(torch.bmm(h, p.wo), "act_experts", None, None)
+    out = out.reshape(e * cap, d)
     y = out[slot].reshape(t, k, d)
     y = (y * (topw * keep).to(y.dtype)[..., None]).sum(dim=1)
     if p.shared:

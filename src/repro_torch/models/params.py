@@ -15,7 +15,15 @@ Every weight is built frozen (``requires_grad=False``), which serving
 needs; a trainer unfreezes its own modules with ``requires_grad_(True)``.
 :func:`flatten_params` and :func:`unflatten_params` carry a module to and
 from ``/``-keyed tensors in the port's own names (``blocks/3/attn/wq``),
-the keys of the optimizer state and the checkpoint."""
+the keys of the optimizer state and the checkpoint.
+
+Each container names the logical axes of its leaves in ``SPECS`` (the
+reference's ``ParamCollector.add`` specs); :func:`param_specs` gives
+``{flat name: logical axes}`` for a config, without the reference's
+stacked ``"layers"`` axis since the port keeps one module per layer.
+:func:`abstract_params` builds a config's parameters on
+``torch.device("meta")`` (shapes and dtypes, no storage, no draws): the
+dry run's and the roofline's parameters."""
 
 from __future__ import annotations
 
@@ -74,6 +82,10 @@ def unflatten_params(params: nn.Module, flat) -> nn.Module:
 
 
 class AttentionParams(nn.Module):
+    SPECS = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+             "q_norm": ("head_dim",), "k_norm": ("head_dim",)}
+
     def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
         super().__init__()
         self.wq, self.wk = _frozen(wq), _frozen(wk)
@@ -82,7 +94,18 @@ class AttentionParams(nn.Module):
         self.k_norm = None if k_norm is None else _frozen(k_norm)
 
 
+class MHAParams(AttentionParams):
+    """Whisper's attention: as many kv heads as heads, so wk / wv shard
+    over ``heads`` as wq does (the reference's specs)."""
+
+    SPECS = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+             "wv": ("embed", "heads"), "wo": ("heads", "embed")}
+
+
 class FFNParams(nn.Module):
+    SPECS = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+
     def __init__(self, wi_gate, wi_up, wo):
         super().__init__()
         self.wi_gate, self.wi_up = _frozen(wi_gate), _frozen(wi_up)
@@ -97,6 +120,12 @@ class MoEFFNParams(nn.Module):
 
     NAMES = ("router", "wi_gate", "wi_up", "wo")
     SHARED = ("shared_wi_gate", "shared_wi_up", "shared_wo")
+    SPECS = {"router": ("embed_no_fsdp", "experts"),
+             "wi_gate": ("experts", "embed", "expert_mlp"),
+             "wi_up": ("experts", "embed", "expert_mlp"),
+             "wo": ("experts", "expert_mlp", "embed"),
+             "shared_wi_gate": ("embed", "mlp"),
+             "shared_wi_up": ("embed", "mlp"), "shared_wo": ("mlp", "embed")}
 
     def __init__(self, **leaves):
         super().__init__()
@@ -115,6 +144,10 @@ class MLAParams(nn.Module):
 
     NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv",
              "wo")
+    SPECS = {"w_dq": ("embed", "q_lora"), "q_norm": ("q_lora",),
+             "w_uq": ("q_lora", "heads"), "w_dkv": ("embed", "kv_lora"),
+             "kv_norm": ("kv_lora",), "w_uk": ("kv_lora", "heads"),
+             "w_uv": ("kv_lora", "heads"), "wo": ("heads", "embed")}
 
     def __init__(self, **leaves):
         super().__init__()
@@ -126,6 +159,8 @@ class BlockParams(nn.Module):
     """ln1, ln2; ``attn`` an :class:`AttentionParams` or
     :class:`MLAParams`; ``ffn`` an :class:`FFNParams` or
     :class:`MoEFFNParams` (the block's kind, :func:`layer_kinds`)."""
+
+    SPECS = {"ln1": ("embed_no_fsdp",), "ln2": ("embed_no_fsdp",)}
 
     def __init__(self, ln1, ln2, attn, ffn):
         super().__init__()
@@ -141,6 +176,10 @@ class DecoderParams(nn.Module):
     ``head_block_{i}`` subtrees).  A ``vlm`` decoder also has
     ``vision_proj`` (vision_embed_dim, d), the projection of the patch
     embeddings into the text stream (None for the other families)."""
+
+    SPECS = {"embed": ("vocab", "embed"), "final_norm": ("embed_no_fsdp",),
+             "lm_head": ("embed", "vocab"),
+             "vision_proj": ("embed_no_fsdp", "embed")}
 
     def __init__(self, embed, final_norm, lm_head, blocks, head_blocks=(),
                  vision_proj=None):
@@ -161,6 +200,10 @@ class MambaBlockParams(nn.Module):
 
     NAMES = ("ln", "in_proj", "conv_w", "conv_b", "dt_bias", "a_log",
              "d_skip", "out_norm", "out_proj")
+    SPECS = {"ln": ("embed_no_fsdp",), "in_proj": ("embed", "mlp"),
+             "conv_w": (None, "conv_dim"), "conv_b": ("conv_dim",),
+             "dt_bias": (None,), "a_log": (None,), "d_skip": (None,),
+             "out_norm": ("mlp",), "out_proj": ("mlp", "embed")}
 
     def __init__(self, **leaves):
         super().__init__()
@@ -188,6 +231,8 @@ class GeluFFNParams(nn.Module):
     """Whisper's FFN: wi (d, F), bi (F,), wo (F, d), bo (d,)."""
 
     NAMES = ("wi", "bi", "wo", "bo")
+    SPECS = {"wi": ("embed", "mlp"), "bi": ("mlp",), "wo": ("mlp", "embed"),
+             "bo": ("embed_no_fsdp",)}
 
     def __init__(self, **leaves):
         super().__init__()
@@ -201,6 +246,9 @@ class EncoderBlockParams(nn.Module):
     (d, H D), wo (H D, d)), ``ffn`` a :class:`GeluFFNParams`."""
 
     NORMS = ("ln1_s", "ln1_b", "ln2_s", "ln2_b")
+    SPECS = {"ln1_s": ("embed_no_fsdp",), "ln1_b": ("embed_no_fsdp",),
+             "ln2_s": ("embed_no_fsdp",), "ln2_b": ("embed_no_fsdp",),
+             "ln3_s": ("embed_no_fsdp",), "ln3_b": ("embed_no_fsdp",)}
 
     def __init__(self, attn, ffn, **norms):
         super().__init__()
@@ -230,6 +278,9 @@ class WhisperParams(nn.Module):
 
     OUTER = ("embed", "lm_head", "enc_norm_s", "enc_norm_b", "dec_norm_s",
              "dec_norm_b")
+    SPECS = dict({"embed": ("vocab", "embed"),
+                  "lm_head": ("embed", "vocab")},
+                 **{n: ("embed_no_fsdp",) for n in OUTER[2:]})
 
     def __init__(self, enc_blocks, dec_blocks, **outer):
         super().__init__()
@@ -240,14 +291,18 @@ class WhisperParams(nn.Module):
 
 
 class _Init:
-    """Sequential seeded draws on one device."""
+    """Sequential seeded draws on one device; on ``meta`` no draws, only
+    shapes and dtypes (a generator cannot live there)."""
 
     def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.gen = None if device.type == "meta" else \
+            torch.Generator(device=device).manual_seed(seed)
         self.dtype = dtype
         self.device = device
 
     def normal(self, *shape, scale: Optional[float] = None):
+        if self.gen is None:
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if scale is None:
             scale = 1.0 / np.sqrt(shape[0] if len(shape) >= 2
                                   else max(shape[-1], 1))
@@ -359,8 +414,8 @@ def _init_whisper_block(ini: _Init, cfg, decoder: bool):
     d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
 
     def attn():
-        return AttentionParams(ini.normal(d, hd), ini.normal(d, hd),
-                               ini.normal(d, hd), ini.normal(hd, d))
+        return MHAParams(ini.normal(d, hd), ini.normal(d, hd),
+                         ini.normal(d, hd), ini.normal(hd, d))
     norms = {}
     for name in (DecoderBlockParams if decoder
                  else EncoderBlockParams).NORMS:
@@ -443,8 +498,8 @@ def _bridge_block(blk, cfg, dev, kind: str = "dense") -> BlockParams:
 
 def _bridge_whisper(tree, cfg, dev) -> WhisperParams:
     def attn(a):
-        return AttentionParams(*(_tensor(a[n], dev)
-                                 for n in ("wq", "wk", "wv", "wo")))
+        return MHAParams(*(_tensor(a[n], dev)
+                           for n in ("wq", "wk", "wv", "wo")))
 
     def block(b, cls):
         kw = {n: _tensor(b[n], dev) for n in cls.NORMS}
@@ -496,3 +551,51 @@ def from_jax_params(tree, cfg, device):
         return Zamba2Params(*outer, _bridge_block(tree["shared"], cfg, dev),
                             mamba)
     raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+_INITS = {"dense": init_params, "moe": init_params, "vlm": init_params,
+          "ssm": init_mamba2_params, "hybrid": init_zamba2_params,
+          "encdec": init_whisper_params}
+
+
+def meta(shape, dtype=torch.int32) -> torch.Tensor:
+    """A stand-in tensor of ``shape`` on ``meta`` (the dry run's inputs)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def token_inputs(shape):
+    """The token-only models' inputs: ``(meta tensors, logical axes)`` of
+    a ``ShapeSpec`` — tokens (B, S) to train or prefill; tokens (B, 1) and
+    cache_len (B,) to decode."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": meta((b, s))}, {"tokens": ("batch", "seq")}
+    return ({"tokens": meta((b, 1)), "cache_len": meta((b,))},
+            {"tokens": ("batch", None), "cache_len": ("batch",)})
+
+
+def module_specs(params: nn.Module) -> Dict[str, tuple]:
+    """``{flat name: logical axes}`` of every parameter of ``params``, from
+    the ``SPECS`` of the container that holds it."""
+    out = {}
+    for prefix, mod in params.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            out[name.replace(".", "/")] = type(mod).SPECS[leaf]
+    return out
+
+
+def abstract_params(cfg):
+    """``(params, specs)``: ``cfg``'s parameters on ``meta`` (no storage,
+    no draws) and their logical axes."""
+    if cfg.family not in _INITS:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    params = _INITS[cfg.family](cfg, 0, "meta")
+    return params, module_specs(params)
+
+
+def param_specs(cfg) -> Dict[str, tuple]:
+    """``{flat name: logical axes}`` of ``cfg``'s parameters, under the
+    port's names (``blocks/3/attn/wq``): the reference's specs without
+    the stacked ``"layers"`` axis."""
+    return abstract_params(cfg)[1]

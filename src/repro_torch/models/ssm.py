@@ -16,19 +16,30 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import lm_loss, remat, rms_norm
+from ..parallel.dtensor_ops import unshard
+from ..parallel.sharding import constrain
+from .layers import embed, lm_loss, remat, rms_norm, zero_pad
 from .params import (
     DTYPES,
     Mamba2Params,
+    abstract_params,
     conv_channels,
     init_mamba2_params,
     resolve_device,
+    token_inputs,
 )
+
+# the recurrent state's heads shard over 'model', beside the TP-sharded
+# inner activations (the reference's choice)
+SSM_CACHE_SPECS = {"ssm": ("layers", "batch", "act_heads", None, None),
+                   "conv": ("layers", "batch", None, "conv_dim")}
 
 
 def _split_in_proj(cfg, proj):
     """proj (..., 2 di + 2 G N + H) → z (di), conv-in (di + 2 G N),
-    dt (H)."""
+    dt (H).  Under a mesh the split points are not shard bounds, so the
+    last dimension is gathered first (:func:`unshard`)."""
+    proj = unshard(proj, -1)
     di = cfg.d_inner
     gn = cfg.ssm_n_groups * cfg.ssm_state
     return proj[..., :di], proj[..., di:2 * di + 2 * gn], \
@@ -36,15 +47,19 @@ def _split_in_proj(cfg, proj):
 
 
 def _causal_conv_train(conv_in, w, b):
-    """Depthwise causal conv over the sequence: conv_in (B,S,C), w (W,C)."""
+    """Depthwise causal conv over the sequence: conv_in (B,S,C), w (W,C);
+    under a mesh the taps are gathered like conv_in (a few KB)."""
+    w, b = unshard(w, -1), unshard(b, -1)
     width, s = w.shape[0], conv_in.shape[1]
-    pad = F.pad(conv_in, (0, 0, width - 1, 0))
+    pad = zero_pad(conv_in, 1, before=width - 1)
     out = sum(pad[:, i:i + s] * w[i][None, None, :] for i in range(width))
     return F.silu(out + b[None, None, :])
 
 
 def _split_conv(cfg, conv_out):
-    """conv_out (..., C) → x (..., di), B (..., G N), C (..., G N)."""
+    """conv_out (..., C) → x (..., di), B (..., G N), C (..., G N), the
+    last dimension gathered first under a mesh, as for in_proj."""
+    conv_out = unshard(conv_out, -1)
     di = cfg.d_inner
     gn = cfg.ssm_n_groups * cfg.ssm_state
     return conv_out[..., :di], conv_out[..., di:di + gn], \
@@ -66,7 +81,7 @@ def mamba_block_train(p, cfg, x):
     y, _ = ops.ssd(xs.contiguous(), dt, a, bmat.contiguous(),
                    cmat.contiguous(), chunk=cfg.ssm_chunk, d_skip=p.d_skip)
     y = rms_norm(y.reshape(b, s, cfg.d_inner) * F.silu(z), p.out_norm)
-    return x + y @ p.out_proj
+    return constrain(x + y @ p.out_proj, "batch", "seq", "act_embed")
 
 
 def mamba_block_decode(p, cfg, x, ssm_state, conv_state):
@@ -126,16 +141,23 @@ class Mamba2LM:
         """Seeded weights on ``device`` (``None`` = the card)."""
         return init_mamba2_params(self.cfg, seed, device)
 
+    def abstract_params(self):
+        """``(params, specs)``: the parameters on ``meta`` and their logical
+        axes (:func:`repro_torch.models.params.abstract_params`)."""
+        return abstract_params(self.cfg)
+
     def logits_fn(self, params: Mamba2Params, batch):
         """Full-sequence forward → (logits (B,S,V), labels); under grad
         each block is rematerialised (:func:`layers.remat`)."""
         tokens = batch["tokens"]
-        x = params.embed[tokens.long()]
+        x = constrain(embed(params.embed, tokens), "batch", "seq",
+                      "act_embed")
         block = remat(mamba_block_train, self.cfg)
         for blk in params.blocks:
             x = block(blk, self.cfg, x)
         x = rms_norm(x, params.final_norm)
-        return x @ params.lm_head, tokens
+        return constrain(x @ params.lm_head, "batch", "seq", "act_vocab"), \
+            tokens
 
     def loss_fn(self, params: Mamba2Params, batch):
         """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
@@ -148,13 +170,26 @@ class Mamba2LM:
         del max_len
         return init_ssm_cache(self.cfg, batch_size, device)
 
+    def cache_specs(self) -> Dict[str, tuple]:
+        """The logical axes of each :meth:`init_cache` entry."""
+        return dict(SSM_CACHE_SPECS)
+
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """``meta`` stand-ins of every model input (the dry run)."""
+        return token_inputs(shape)[0]
+
+    def input_axes(self, shape) -> Dict[str, tuple]:
+        return token_inputs(shape)[1]
+
     def decode_step(self, params: Mamba2Params, cache, batch):
         """One token for every sequence.  batch: tokens (B,1) (a
         ``cache_len`` is accepted and unused).  Returns (logits (B,V),
         cache); the cache is updated in place."""
-        x = params.embed[batch["tokens"].long()]               # (B,1,d)
+        x = constrain(embed(params.embed, batch["tokens"]),    # (B,1,d)
+                      "batch", None, "act_embed")
         for i, blk in enumerate(params.blocks):
             x = mamba_block_decode(blk, self.cfg, x, cache["ssm"][i],
                                    cache["conv"][i])
         x = rms_norm(x, params.final_norm)
-        return x[:, 0] @ params.lm_head, cache
+        return constrain(x[:, 0] @ params.lm_head, "batch", "act_vocab"), \
+            cache

@@ -21,10 +21,12 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constrain, split_dim
 from .layers import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    embed,
     lm_loss,
     mrope_angles,
     remat,
@@ -34,17 +36,16 @@ from .layers import (
 )
 from .mla import mla_attention_decode, mla_attention_train
 from .moe import apply_moe_ffn
-from .params import (DTYPES, DecoderParams, init_params, layer_kinds,
-                     resolve_device)
+from .params import (DTYPES, DecoderParams, abstract_params, init_params,
+                     layer_kinds, meta, resolve_device, token_inputs)
 
 
 def _qkv(p, cfg, x):
     """p: one block's AttentionParams; x (B,S,d) → q (B,S,H,D),
     k/v (B,S,Hkv,D)."""
-    b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = split_dim(x @ p.wq, -1, cfg.n_heads, cfg.head_dim)
+    k = split_dim(x @ p.wk, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = split_dim(x @ p.wv, -1, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -56,13 +57,15 @@ def ffn_apply(p, x, cfg=None, kind: str = "dense"):
     kind the routed experts (``p`` a MoEFFNParams; needs ``cfg``)."""
     if kind.endswith("moe"):
         return apply_moe_ffn(p, cfg, x)
-    return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
+    h = F.silu(x @ p.wi_gate) * (x @ p.wi_up)
+    return constrain(h, "batch", "seq", "act_mlp") @ p.wo
 
 
 def attention_train(p, cfg, x, angles):
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     q, k = apply_rope(q, angles), apply_rope(k, angles)
+    q = constrain(q, "batch", "seq", "act_heads", None)
     out = blockwise_attention(q, k, v, causal=True)
     return out.reshape(b, s, -1) @ p.wo
 
@@ -76,7 +79,8 @@ def block_train(p, cfg, x, angles, kind: str):
     else:
         attn_out = attention_train(p.attn, cfg, h, angles)
     x = x + attn_out
-    return x + ffn_apply(p.ffn, rms_norm(x, p.ln2), cfg, kind)
+    x = x + ffn_apply(p.ffn, rms_norm(x, p.ln2), cfg, kind)
+    return constrain(x, "batch", "seq", "act_embed")
 
 
 def block_decode(p, cfg, x, cache, i, prefix, cache_len, angles, kind):
@@ -123,6 +127,11 @@ class DecoderLM:
         """Seeded weights on ``device`` (``None`` = the card)."""
         return init_params(self.cfg, seed, device)
 
+    def abstract_params(self):
+        """``(params, specs)``: the parameters on ``meta`` and their logical
+        axes (:func:`repro_torch.models.params.abstract_params`)."""
+        return abstract_params(self.cfg)
+
     def _layers(self, params):
         """(block params, kind, cache prefix, cache index) in order."""
         return [(blk, self.kinds[i], "head_", i)
@@ -145,7 +154,7 @@ class DecoderLM:
         """→ (x (B,S,d), angles, labels (B,S)): a ``vlm`` batch's
         projected patches lead the text, labelled -1."""
         tokens = batch["tokens"]
-        x = params.embed[tokens.long()]
+        x = embed(params.embed, tokens)
         labels = tokens
         if self.cfg.family == "vlm":
             vis = batch["patch_embeds"].to(x.dtype) @ params.vision_proj
@@ -154,7 +163,8 @@ class DecoderLM:
                 (tokens.shape[0], vis.shape[1]), -1, dtype=tokens.dtype,
                 device=tokens.device), tokens], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        return x, self._angles(positions, batch), labels
+        return constrain(x, "batch", "seq", "act_embed"), \
+            self._angles(positions, batch), labels
 
     # ------------------------------------------------------------- train
     def logits_fn(self, params: DecoderParams, batch):
@@ -167,7 +177,8 @@ class DecoderLM:
             x = (tail if prefix == "" else block_train)(
                 blk, self.cfg, x, angles, kind)
         x = rms_norm(x, params.final_norm)
-        return x @ params.lm_head, labels
+        return constrain(x @ params.lm_head, "batch", "seq", "act_vocab"), \
+            labels
 
     def loss_fn(self, params: DecoderParams, batch):
         """Mean next-token cross-entropy over ``batch`` (fp32 scalar)."""
@@ -197,16 +208,60 @@ class DecoderLM:
                         device=dev)
         return cache
 
+    def cache_specs(self) -> Dict[str, tuple]:
+        """The logical axes of each :meth:`init_cache` entry."""
+        if self.cfg.use_mla:
+            axes = {"c_kv": ("layers", "batch", "decode_seq", "kv_lora"),
+                    "k_rope": ("layers", "batch", "decode_seq", None)}
+        else:
+            kv = ("layers", "batch", "decode_seq", "act_kv_heads",
+                  "head_dim")
+            axes = {"k": kv, "v": kv}
+        out = dict(axes)
+        if self.n_head:
+            out.update({"head_" + k: v for k, v in axes.items()})
+        return out
+
+    # --------------------------------------------------------------- I/O
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """``meta`` stand-ins of every model input for a ``ShapeSpec``
+        (the dry run)."""
+        cfg = self.cfg
+        if cfg.family != "vlm":
+            return token_inputs(shape)[0]
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind in ("train", "prefill"):
+            s_vis = int(s * cfg.vision_frac)
+            return {"tokens": meta((b, s - s_vis)),
+                    "patch_embeds": meta((b, s_vis, cfg.vision_embed_dim),
+                                         self.dtype),
+                    "positions_thw": meta((b, s, 3))}
+        return {"tokens": meta((b, 1)), "cache_len": meta((b,)),
+                "positions_thw": meta((b, 1, 3))}
+
+    def input_axes(self, shape) -> Dict[str, tuple]:
+        """The logical axes of each :meth:`input_specs` entry."""
+        if self.cfg.family != "vlm":
+            return token_inputs(shape)[1]
+        if shape.kind in ("train", "prefill"):
+            return {"tokens": ("batch", "seq"),
+                    "patch_embeds": ("batch", "seq", None),
+                    "positions_thw": ("batch", "seq", None)}
+        return {"tokens": ("batch", None), "cache_len": ("batch",),
+                "positions_thw": ("batch", None, None)}
+
     def decode_step(self, params: DecoderParams, cache, batch):
         """One token for every sequence.  batch: tokens (B,1), cache_len
         (B,) including the new token (and for ``vlm`` positions_thw
         (B,1,3)).  Returns (logits (B,V), cache); the cache is updated in
         place."""
         cache_len = batch["cache_len"]
-        x = params.embed[batch["tokens"].long()]               # (B,1,d)
+        x = constrain(embed(params.embed, batch["tokens"]),    # (B,1,d)
+                      "batch", None, "act_embed")
         angles = self._angles((cache_len - 1)[:, None], batch)
         for blk, kind, prefix, i in self._layers(params):
             x = block_decode(blk, self.cfg, x, cache, i, prefix, cache_len,
                              angles, kind)
         x = rms_norm(x, params.final_norm)
-        return x[:, 0] @ params.lm_head, cache
+        return constrain(x[:, 0] @ params.lm_head, "batch", "act_vocab"), \
+            cache

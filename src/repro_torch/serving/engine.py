@@ -404,6 +404,8 @@ class _ShardEngine:
         # packed chunks that carried decode riders: each runs the riders'
         # decode step too (one paged launch a layer)
         self.rider_chunks = 0
+        # dedicated decode steps (one paged launch a layer each)
+        self.decode_steps = 0
         # fault tolerance (DESIGN.md §14): the shard's scheduled faults,
         # its loop heartbeat, and the recovery counters stats() exposes
         self.fault_line = build_fault_line(config.faults, shard_id)
@@ -1524,6 +1526,7 @@ class _ShardEngine:
         max_batch rows) → (next tokens, logprobs) as host arrays."""
         self._fault_dispatch()
         logits, ctx = self._decode_logits(batch_seqs)
+        self.decode_steps += 1
         sampf, sampi = self._operands(batch_seqs, self.max_batch)
         return self._sample(logits, sampf, sampi, ctx)
 
@@ -1892,6 +1895,7 @@ class _ShardEngine:
             "packed_chunks": self.packed_chunks,
             "packed_segments": self.packed_segments,
             "rider_chunks": self.rider_chunks,
+            "decode_steps": self.decode_steps,
             "packed_segments_per_chunk": (
                 self.packed_segments / self.packed_chunks
                 if self.packed_chunks else 0.0),

@@ -462,6 +462,7 @@ class ServingSession:
             "packed_chunks": sum(s["packed_chunks"] for s in shards),
             "packed_segments": sum(s["packed_segments"] for s in shards),
             "rider_chunks": sum(s["rider_chunks"] for s in shards),
+            "decode_steps": sum(s["decode_steps"] for s in shards),
             # fault-tolerance counters (DESIGN.md §14): migrations counts
             # completed handoffs (in == out when no handoff is mid-flight)
             "migrations": sum(s["migrated_out"] for s in shards),

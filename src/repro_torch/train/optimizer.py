@@ -19,20 +19,47 @@ and the moments in place (a trainer at full width cannot hold a second
 copy of either) and returns the state it was given, with ``count``
 advanced.
 
-Not ported yet: ``abstract_state`` (shapes and logical sharding specs for
-the dry-run), which waits for ``parallel/`` (ROADMAP A.12)."""
+Both expose ``abstract_state(param_shapes, param_specs)``: the state's
+tensors on ``meta`` (shapes and dtypes equal, leaf for leaf, to what
+``init`` builds) and their logical axes, which the dry run places on the
+mesh.  ``init`` places each moment as its parameter is placed: a DTensor
+parameter (``parallel.sharding.shard_params``) gets DTensor moments of
+the same placements (Adafactor's factored rows and columns keep the
+split of the dimensions they keep)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed import tensor as dtensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def _count(params):
     """A zero int32 0-d tensor on the parameters' device."""
     return torch.zeros((), dtype=torch.int32,
                        device=next(iter(params.values())).device)
+
+
+def _zeros_placed(p, shape, dtype, kept):
+    """Zeros of ``shape`` on ``p``'s device; for a DTensor ``p`` placed as
+    ``p`` is, ``kept`` mapping each dimension of ``p`` to the new
+    tensor's (absent: dropped, that mesh dimension replicates)."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    place = [Shard(kept[pl.dim]) if pl.is_shard() and pl.dim in kept
+             else Replicate() for pl in p.placements]
+    return dtensor.zeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                         placements=place)
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _abstract_count():
+    return torch.empty((), dtype=torch.int32, device="meta")
 
 
 class AdamW:
@@ -44,10 +71,20 @@ class AdamW:
 
     def init(self, params):
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            return {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in params.items()}
         return {"m": zeros(), "v": zeros(), "count": _count(params)}
+
+    def abstract_state(self, param_shapes, param_specs):
+        """(state on ``meta``, its logical axes): fp32 m and v shaped as
+        their parameters and specced as them, ``count`` a 0-d int32."""
+        def f32():
+            return {k: _meta(p.shape, torch.float32)
+                    for k, p in param_shapes.items()}
+        shapes = {"m": f32(), "v": f32(), "count": _abstract_count()}
+        specs = {"m": dict(param_specs), "v": dict(param_specs),
+                 "count": ()}
+        return shapes, specs
 
     @torch.no_grad()
     def update(self, grads, state, params):
@@ -80,15 +117,36 @@ class Adafactor:
     def _factored(self, shape) -> bool:
         return len(shape) >= 2
 
+    def _parts(self, shape):
+        """{part: (shape, {kept dim of the parameter: dim of the part})}."""
+        n = len(shape)
+        if not self._factored(shape):
+            return {"v": (tuple(shape), {d: d for d in range(n)})}
+        return {"vr": (tuple(shape[:-1]), {d: d for d in range(n - 1)}),
+                "vc": (tuple(shape[:-2]) + tuple(shape[-1:]),
+                       {**{d: d for d in range(n - 2)}, n - 1: n - 2})}
+
     def init(self, params):
         f = {}
         for k, p in params.items():
-            shapes = ({"vr": p.shape[:-1], "vc": p.shape[:-2] + p.shape[-1:]}
-                      if self._factored(p.shape) else {"v": p.shape})
-            for part, shape in shapes.items():
-                f[f"{k}/{part}"] = torch.zeros(shape, dtype=self.acc_dtype,
-                                               device=p.device)
+            for part, (shape, kept) in self._parts(p.shape).items():
+                f[f"{k}/{part}"] = _zeros_placed(p, shape, self.acc_dtype,
+                                                 kept)
         return {"f": f, "count": _count(params)}
+
+    def abstract_state(self, param_shapes, param_specs):
+        """(state on ``meta``, its logical axes): per leaf ``vr`` / ``vc``
+        (specs: the parameter's without its last, and without its
+        next-to-last, axis) or ``v``, in the accumulator dtype."""
+        shapes, specs = {}, {}
+        for k, p in param_shapes.items():
+            ax = tuple(param_specs[k])
+            for part, (shape, _) in self._parts(p.shape).items():
+                shapes[f"{k}/{part}"] = _meta(shape, self.acc_dtype)
+                specs[f"{k}/{part}"] = {"v": ax, "vr": ax[:-1],
+                                        "vc": ax[:-2] + ax[-1:]}[part]
+        return ({"f": shapes, "count": _abstract_count()},
+                {"f": specs, "count": ()})
 
     @torch.no_grad()
     def update(self, grads, state, params):

@@ -176,6 +176,21 @@ def test_ssd_oracles_match_jax_with_initial_state(oracle):
                                **SSD_TOLS["float32"])
 
 
+@pytest.mark.parametrize("d_skip", [True, False])
+def test_ssd_quadratic_fp64_matches_jax_oracle(d_skip):
+    """``ssd_quadratic`` on fp64 inputs (the fp64 path of the gradient
+    holds) against JAX's sequential fp32 oracle on the same values, at
+    the fp32 SSD tolerance, over G = 2 groups of 4 heads."""
+    arrays = _ssd_inputs((2, 40, 4, 8, 2, 16), seed=10, d_skip=d_skip)
+    want_y, _ = jref.ssd_ref(*[jnp.asarray(a) for a in arrays[:5]],
+                             d_skip=jnp.asarray(arrays[5]) if d_skip
+                             else None)
+    t = [torch.from_numpy(a).double() for a in arrays]
+    y, final = tref.ssd_quadratic(*t[:5], d_skip=t[5] if d_skip else None)
+    assert y.dtype == torch.float64 and final is None
+    np.testing.assert_allclose(y.numpy(), _np(want_y), **SSD_TOLS["float32"])
+
+
 def test_ssd_plain_strong_decay_stays_finite():
     """Log-decay summing past 88 inside a chunk: the decay factor above
     the diagonal is selected away, never multiplied by 0."""
