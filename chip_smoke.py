@@ -176,7 +176,7 @@ Phases, in order; each prints one line and any failure exits non-zero:
    and 10 replayed within rtol = atol = 2e-4 of the first run's losses;
    then a bf16 Trainer state saved and restored byte for byte;
 17. the distribution layer and the launchers (``--only 17`` runs
-   17a-17c):
+   17a-17d):
 17a. the serve launcher (``launch.serve.main``) on TinyLlama-1.1B at
    published widths in bf16, 8 requests: 8 completed, 0 failed, greedy
    tokens equal to the same requests served straight through
@@ -191,16 +191,25 @@ Phases, in order; each prints one line and any failure exits non-zero:
    byte-equal to the saved state; ``gpipe_forward`` (one stage, 22
    blocks, 4 microbatches) byte-equal to the sequential stack;
 17c. the dry run in a subprocess (TinyLlama-1.1B x train_4k and
-   x decode_32k on the 16 x 16 fake mesh) and the roofline rows with the
-   H100 constants: positive FLOPs and bytes, 256 devices, an all-gather
-   on train; the records and rows are printed;
+   x decode_32k, OLMoE-1B-7B x train_4k, on the 16 x 16 fake mesh) and
+   the roofline rows with the H100 constants: positive FLOPs and bytes,
+   256 devices, an all-gather on each train cell; the records, each train
+   cell's per-device FLOPs and bytes, and the rows are printed;
+17d. the per-rank bodies of the mesh's splits, rank by rank on the card
+   (``split_bodies``): ``gqa_local`` at TinyLlama's attention shape and
+   ``ssd_scan`` on head blocks at phase 8's Mamba2 shape, 16 ways each,
+   fp32 and bf16,
+   reassembled against one unsharded kernel call at phases 7's and 8's
+   tolerances; OLMoE-1B-7B's ``expert_partial`` over 2 token blocks and
+   16 expert blocks: the unsharded FFN's kept set exactly, the partials'
+   sum within relative L2 1e-5;
 18. the kernel table as one JSON line (each row with the variant of the
    main path; the paged row's launches count the verify chunks of phases
    12 and 13b, the riders of phases 6 and 12 and the decode steps of
    17a, the packed row's also 17a's prefill chunks, the flash row's
-   those of phases 10, 14a, 14b, 15a, 15b, 16b-16d and 17b, the SSD
-   row's those of phases 10 and 16b), the card line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+   those of phases 10, 14a, 14b, 15a, 15b, 16b-16d, 17b and 17d, the SSD
+   row's those of phases 10, 16b and 17d), the card line, and the result
+   line ``{"ok": true, "device": {...}}`` last.
 
 ``--only 7,13c`` runs just those phases, for iterating on a few: it
 prints no kernel table and no result line.  With no argument every phase
@@ -2909,20 +2918,26 @@ def sharded_step(torch, b=2, s=512):
     return out, launches
 
 
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b",
+                                                  "decode_32k"),
+                ("olmoe-1b-7b", "train_4k"))
+
+
 def dryrun_records(torch):
     """17c: the dry run in a subprocess of its own (the fake process group
     cannot share a process with NCCL): TinyLlama-1.1B x train_4k and x
-    decode_32k on the 16 x 16 fake mesh, then the roofline rows with the
-    H100 constants.  Holds positive FLOPs and bytes, 256 devices and at
-    least one all-gather on train.  Returns (records, roofline text)."""
+    decode_32k and OLMoE-1B-7B x train_4k on the 16 x 16 fake mesh, then
+    the roofline rows with the H100 constants.  Holds positive FLOPs and
+    bytes, 256 devices and at least one all-gather on each train cell.
+    Returns (records by cell, roofline text)."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         code = (
             "import sys\n"
             "from repro_torch.launch import dryrun, roofline\n"
-            "for shape in ('train_4k', 'decode_32k'):\n"
-            "    assert dryrun.main(['--arch', 'tinyllama-1.1b', '--shape',"
-            " shape, '--out', sys.argv[1]]) == 0\n"
+            f"for arch, shape in {DRYRUN_CELLS!r}:\n"
+            "    assert dryrun.main(['--arch', arch, '--shape', shape, "
+            "'--out', sys.argv[1]]) == 0\n"
             "roofline.main(['--records', sys.argv[1], '--out', "
             "sys.argv[1] + '/roofline.md'])\n")
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -2933,20 +2948,154 @@ def dryrun_records(torch):
             raise AssertionError(f"17c: the dry run failed:\n"
                                  f"{proc.stderr[-3000:]}")
         recs = {}
-        for shape in ("train_4k", "decode_32k"):
-            with open(f"{tmp}/tinyllama-1.1b__{shape}__pod1__baseline"
-                      f".json") as f:
-                recs[shape] = json.load(f)
+        for arch, shape in DRYRUN_CELLS:
+            with open(f"{tmp}/{arch}__{shape}__pod1__baseline.json") as f:
+                recs[f"{arch} x {shape}"] = json.load(f)
         with open(f"{tmp}/roofline.md") as f:
             table = f.read()
-    for shape, r in recs.items():
+    for cell, r in recs.items():
         if not (r["flops_per_device"] > 0 and
                 r["bytes_accessed_per_device"] > 0 and
                 r["n_chips"] == 256):
-            raise AssertionError(f"17c {shape}: {r}")
-    if recs["train_4k"]["collectives"]["all-gather"]["count"] < 1:
-        raise AssertionError("17c: no all-gather on train")
+            raise AssertionError(f"17c {cell}: {r}")
+        if r["kind"] == "train" and \
+                r["collectives"]["all-gather"]["count"] < 1:
+            raise AssertionError(f"17c {cell}: no all-gather on train")
     return recs, table
+
+
+def split_bodies(torch):
+    """17d: the per-rank bodies of the mesh's three splits, rank by rank
+    on this card at published widths, each against the unsharded call.
+    (a) TinyLlama-1.1B attention (B 4, S 1024, H 32, Hkv 4, D 64, causal)
+    at 16 ways, fp32 and bf16: 16 ``gqa_local`` launches of 2 q heads and
+    1 kv head, reassembled within phase 7's tolerance of one unsharded
+    kernel call (bytes equal or not, printed); (b) Mamba2-1.3B's SSD at
+    phase 8's shape (B 4, S 1024, H 64, P 64, N 128, chunk 128) at 16
+    ways, fp32 and bf16: 16 ``ssd_scan`` launches of 4 heads, y and the
+    final state within phase 8's tolerance; (c) one OLMoE-1B-7B MoE FFN
+    (64 experts top 8, D 2048, F 1024, fp32) on B 4 x 512 tokens in 2
+    stand-in data blocks and 16 stand-in expert blocks of 4:
+    ``expert_partial`` keeps exactly the unsharded ``apply_moe_ffn``'s
+    (token, choice) set and its partials sum within relative L2 1e-5 of
+    its output.  Returns (lines, launches of the per-rank calls)."""
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sharded
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import moe
+    ways, lines = 16, []
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=DEVICE) *
+                scale).to(dtype)
+
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        b, s, h, hkv, d = 4, 1024, 32, 4, 64
+        q, k, v = (randn(b, s, n, d, dtype=dt_) for n in (h, hkv, hkv))
+        want = fa.flash_attention(q, k, v, causal=True)
+        hl = h // ways
+        before = fa.launches.count
+        got = torch.cat([sharded.gqa_local(q[:, :, r * hl:(r + 1) * hl], k,
+                                           v, r, ways, True)
+                         for r in range(ways)], dim=2)
+        torch.cuda.synchronize()
+        n = fa.launches.count - before
+        if n != ways:
+            raise AssertionError(f"17d gqa {dtype}: {n} launches, want "
+                                 f"{ways}")
+        launches["flash_attention"] += n
+        err = close_enough(got, want, TOL[dtype])
+        lines.append(f"(a) TinyLlama attention {dtype}: {n} gqa_local "
+                     f"launches of {hl} q heads and 1 kv head, max_abs_err "
+                     f"{err:.3g} against the unsharded kernel (tol "
+                     f"{TOL[dtype]}), bytes equal "
+                     f"{bool(torch.equal(got, want))}")
+        del q, k, v, want, got
+
+        b, s, h, p, n_state, chunk = 4, 1024, 64, 64, 128, 128
+        x = randn(b, s, h, p, dtype=dt_)
+        dt = torch.nn.functional.softplus(randn(b, s, h) - 1.0)
+        a = -torch.exp(randn(h, scale=0.5))
+        bm, cm = (randn(b, s, 1, n_state, scale=0.3, dtype=dt_)
+                  for _ in range(2))
+        ds = randn(h)
+        want_y, want_f = ss.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                     d_skip=ds)
+        hl = h // ways
+        before = ss.launches.count
+        parts = [ss.ssd_scan(
+            x[:, :, r * hl:(r + 1) * hl].contiguous(),
+            dt[:, :, r * hl:(r + 1) * hl], a[r * hl:(r + 1) * hl], bm, cm,
+            chunk=chunk, d_skip=ds[r * hl:(r + 1) * hl])
+            for r in range(ways)]
+        torch.cuda.synchronize()
+        n = ss.launches.count - before
+        if n != ways:
+            raise AssertionError(f"17d ssd {dtype}: {n} launches, want "
+                                 f"{ways}")
+        launches["ssd_scan"] += n
+        y = torch.cat([t for t, _ in parts], dim=2)
+        final = torch.cat([t for _, t in parts], dim=1)
+        err = max(close_enough(y, want_y, SSD_TOL[dtype]),
+                  close_enough(final, want_f, SSD_TOL[dtype]))
+        lines.append(f"(b) Mamba2 SSD {dtype}: {n} ssd_scan launches of "
+                     f"{hl} heads, max_abs_err {err:.3g} against the "
+                     f"unsharded kernel (tol {SSD_TOL[dtype]}), bytes equal "
+                     f"{bool(torch.equal(y, want_y))} / "
+                     f"{bool(torch.equal(final, want_f))}")
+        del x, y, final, parts, want_y, want_f
+
+    cfg = get_config("olmoe-1b-7b").replace(dtype="float32")
+    e, dm, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    w = SimpleNamespace(router=randn(dm, e, scale=dm ** -0.5),
+                        wi_gate=randn(e, dm, f, scale=dm ** -0.5),
+                        wi_up=randn(e, dm, f, scale=dm ** -0.5),
+                        wo=randn(e, f, dm, scale=f ** -0.5), shared=False)
+    b, s = 4, 512
+    # a shared direction in every token biases the router, so the busiest
+    # experts overflow their capacity and choices are dropped
+    x = randn(b, s, dm) + randn(dm, scale=0.5)
+    with torch.no_grad():
+        want = moe.apply_moe_ffn(w, cfg, x).reshape(b * s, dm)
+        want_keep = moe.route(w, cfg, x.reshape(b * s, dm))[3]
+        cap = moe.capacity(cfg, b * s)
+        blocks = x.reshape(b * s, dm).chunk(2)
+        routes = [moe.route(w, cfg, xb)[:3] for xb in blocks]
+        # the second block's positions follow the first block's choices
+        topw, tope, pos = routes[1]
+        routes[1] = (topw, tope,
+                     pos + moe.expert_counts(routes[0][1], e)[tope])
+        e_l = e // ways
+        got, same = [], True
+        for t, xb in enumerate(blocks):
+            y = torch.zeros_like(xb)
+            for r in range(ways):
+                part = SimpleNamespace(router=w.router, **{
+                    k: getattr(w, k)[r * e_l:(r + 1) * e_l]
+                    for k in ("wi_gate", "wi_up", "wo")})
+                yr, keep = moe.expert_partial(part, cfg, xb, routes[t],
+                                              cap=cap, first=r * e_l)
+                y += yr
+                same &= torch.equal(keep, want_keep.chunk(2)[t])
+            got.append(y)
+        got = torch.cat(got)
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError("17d moe: the kept (token, choice) set differs "
+                             "from the unsharded apply_moe_ffn's")
+    err = rel_l2(got, want)
+    if not (torch.isfinite(got).all() and err <= 1e-5):
+        raise AssertionError(f"17d moe: relative L2 {err:.3g} > 1e-5")
+    lines.append(f"(c) OLMoE MoE FFN fp32: 2 token blocks x {ways} expert "
+                 f"blocks of {e_l} experts, cap {cap}, kept set equal "
+                 f"({int((~want_keep).sum())} of {want_keep.numel()} "
+                 f"choices dropped), relative L2 {err:.3g} (limit 1e-5)")
+    return lines, launches
 
 
 # phase 7's rows at the models' own attention shapes: (Hkv, S, shape)
@@ -2963,7 +3112,7 @@ FLASH_MODEL_CASES = [
 
 PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
           "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b",
-          "16b-seeds", "16c", "16d", "17a", "17b", "17c")
+          "16b-seeds", "16c", "16d", "17a", "17b", "17c", "17d")
 
 
 def parse_only(argv):
@@ -2978,7 +3127,7 @@ def parse_only(argv):
     if "16" in only:
         only = (only - {"16"}) | {"16a", "16b", "16b-seeds", "16c", "16d"}
     if "17" in only:
-        only = (only - {"17"}) | {"17a", "17b", "17c"}
+        only = (only - {"17"}) | {"17a", "17b", "17c", "17d"}
     if not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}; "
                          f"known: {', '.join(PHASES)}")
@@ -3245,12 +3394,26 @@ def main(argv) -> int:
     if on("17c"):
         t0 = time.perf_counter()
         recs, table = dryrun_records(torch)
-        for shape, rec in recs.items():
-            say(f"[17c dry run {shape}] {json.dumps(rec)}")
+        for cell, rec in recs.items():
+            say(f"[17c dry run {cell}] {json.dumps(rec)}")
+        for cell, rec in recs.items():
+            if rec["kind"] == "train":
+                say(f"[17c per device {cell}] flops "
+                    f"{rec['flops_per_device']:.4g} bytes "
+                    f"{rec['bytes_accessed_per_device']:.4g} collective "
+                    f"bytes {rec['collective_bytes_per_device']:.4g} "
+                    f"(torch {torch.__version__})")
         for line in table.splitlines():
-            if line.startswith("| tinyllama"):
+            if line.startswith(("| tinyllama", "| olmoe")):
                 say(f"[17c roofline H100] {line}")
         say(f"[17c dry run] {time.perf_counter() - t0:.1f} s")
+    if on("17d"):
+        t0 = time.perf_counter()
+        lines, path_launches = split_bodies(torch)
+        add(path_launches)
+        for line in lines:
+            say(f"[17d split bodies] {line} [{card}]")
+        say(f"[17d split bodies] {time.perf_counter() - t0:.1f} s")
 
     if only is None:
         table = []

@@ -33,7 +33,8 @@ Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
 CPU tensor runs :func:`flash_attention_plain`, and so does a ``meta``
 tensor (the dry run's abstract device, where nothing runs).  There is no
 fallback.  DTensor inputs run on their local shards through ``local_map``
-(:mod:`.sharded`), sharded at most over batch and heads.
+(:mod:`.sharded`), sharded at most over batch and heads (with GQA's kv
+heads whole where they do not split as far as the q heads).
 
 Gradients: the kernels are forward-only, as the TPU kernel is (the JAX
 trainer differentiates the jnp mirror ``layers.blockwise_attention``).
@@ -51,7 +52,7 @@ import math
 
 import torch
 
-from ..parallel.dtensor_ops import is_dtensor
+from ..parallel.dtensor_ops import is_dtensor, local_rank, run_local
 from . import build, ref, sharded
 
 MAX_HEAD_DIM = 192   # the FMA kernel's register tile covers D <= 192
@@ -202,15 +203,25 @@ def flash_attention(q, k, v, *, causal: bool):
 
 def _flash_sharded(q, k, v, causal: bool):
     """Attention of DTensors on their local shards: each mesh dimension
-    keeps q's batch or head split where the sizes allow it (heads only if
-    H and Hkv both divide, so every local q head finds its kv head) and
-    replicates otherwise; k, v and the output follow q."""
+    keeps q's batch or head split where the sizes allow it and replicates
+    otherwise.  Heads split alike over q and k / v where Hkv divides;
+    where only H does and each rank's q heads lie in one kv group (GQA's
+    few kv heads: TinyLlama's 4 over 16 ways), k / v enter whole on the
+    head split and each rank attends its one kv head
+    (:func:`sharded.gqa_local`).  The output follows q."""
     b, _, h, _ = q.shape
     hkv = k.shape[2]
     dims = sharded.split_dims(
         q, (0, 2), lambda d, n: b % n == 0 if d == 0 else
-        h % n == 0 and hkv % n == 0)
-    return sharded.run_local(
-        lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), causal=causal),
-        (q, k, v), (dims, dims, dims), (dims,), q.device_mesh)
+        h % n == 0 and (hkv % n == 0 or (h // hkv) % (h // n) == 0))
+    rank, ways = local_rank(
+        q.device_mesh, [i for i, d in enumerate(dims) if d == 2])
+    if hkv % ways == 0:
+        return run_local(
+            lambda q, k, v: flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=causal),
+            (q, k, v), (dims, dims, dims), (dims,), q.device_mesh)
+    kv = [None if d == 2 else d for d in dims]
+    return run_local(
+        lambda q, k, v: sharded.gqa_local(q, k, v, rank, ways, causal),
+        (q, k, v), (dims, kv, kv), (dims,), q.device_mesh)

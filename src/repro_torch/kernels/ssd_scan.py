@@ -44,7 +44,7 @@ import ctypes
 
 import torch
 
-from ..parallel.dtensor_ops import is_dtensor
+from ..parallel.dtensor_ops import is_dtensor, run_local
 from . import build, ref, sharded
 
 MAX_CHUNK = 128   # the kernel's score strips cover 128 key columns
@@ -216,7 +216,7 @@ def _ssd_sharded(x, dt, a, b, c, chunk, d_skip):
     groups = {0: 0, 2: None if g == 1 else 2, None: None}
     final = {0: 0, 2: 1, None: None}            # (B, H, P, N)
     vec = [heads[d] for d in dims]
-    return sharded.run_local(
+    return run_local(
         lambda x, dt, a, b, c, d: ssd_scan(
             x.contiguous(), dt, a, b.contiguous(), c.contiguous(),
             chunk=chunk, d_skip=d),

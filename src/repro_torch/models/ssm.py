@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..parallel.dtensor_ops import unshard
+from ..parallel.dtensor_ops import is_dtensor, shard_local, unshard, \
+    view_local
 from ..parallel.sharding import constrain
 from .layers import embed, lm_loss, remat, rms_norm, zero_pad
 from .params import (
@@ -66,21 +67,47 @@ def _split_conv(cfg, conv_out):
         conv_out[..., di + gn:]
 
 
+def _head_split(cfg, in_proj):
+    """The mesh dimensions that split the scan's heads: those that split
+    in_proj's last dimension (``"mlp"``), where H divides over them and
+    the groups split alike or are one; none for a plain in_proj."""
+    if not is_dtensor(in_proj):
+        return []
+    mesh = in_proj.device_mesh
+    dims = [i for i, p in enumerate(in_proj.placements) if p.is_shard(1)]
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+    h, g = cfg.ssm_n_heads, cfg.ssm_n_groups
+    return dims if h % n == 0 and (g == 1 or g % n == 0) else []
+
+
 def mamba_block_train(p, cfg, x):
-    """One Mamba2 block over a full sequence; x (B,S,d) → (B,S,d)."""
+    """One Mamba2 block over a full sequence; x (B,S,d) → (B,S,d).
+
+    Under a mesh the scan runs on each rank's heads: xs and dt, whole
+    after the gathered conv, are split on the head dimension over the
+    mesh dimensions that split in_proj's ``"mlp"`` (:func:`_head_split`),
+    y comes back split so, its (B,S,di) view split on di in contiguous
+    blocks as out_norm and out_proj's rows are, z is sliced alike, the
+    gated norm reduces across the split and ``y @ out_proj`` is a partial
+    sum that the final constraint resolves."""
     b, s, _ = x.shape
     h = rms_norm(x, p.ln)
     z, conv_in, dt = _split_in_proj(cfg, h @ p.in_proj)
     xs, bmat, cmat = _split_conv(
         cfg, _causal_conv_train(conv_in, p.conv_w, p.conv_b))
-    xs = xs.reshape(b, s, cfg.ssm_n_heads, cfg.ssm_head_dim)
+    heads = _head_split(cfg, p.in_proj)
+    xs = shard_local(xs.reshape(b, s, cfg.ssm_n_heads, cfg.ssm_head_dim),
+                     2, heads)
     bmat = bmat.reshape(b, s, cfg.ssm_n_groups, cfg.ssm_state)
     cmat = cmat.reshape(b, s, cfg.ssm_n_groups, cfg.ssm_state)
-    dt = F.softplus(dt.float() + p.dt_bias)
+    dt = shard_local(F.softplus(dt.float() + p.dt_bias), 2, heads)
     a = -torch.exp(p.a_log.float())
     y, _ = ops.ssd(xs.contiguous(), dt, a, bmat.contiguous(),
                    cmat.contiguous(), chunk=cfg.ssm_chunk, d_skip=p.d_skip)
-    y = rms_norm(y.reshape(b, s, cfg.d_inner) * F.silu(z), p.out_norm)
+    y = view_local(y, (b, s, cfg.d_inner)) * F.silu(shard_local(z, 2, heads))
+    y = rms_norm(y, p.out_norm)
     return constrain(x + y @ p.out_proj, "batch", "seq", "act_embed")
 
 

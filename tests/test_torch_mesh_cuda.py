@@ -13,6 +13,10 @@ that distance by fp32 noise alone, so its gradients are held as
 distance to an fp64 unsharded plain path (the SSD by
 ``kernels.ref.ssd_quadratic``), the sharded path's median and worst leaf
 each at most ``FP64_RATIO`` (2) times the unsharded fp32 path's.
+OLMoE-1B-7B at 4 of its 16 layers (the cut lets both steps fit one
+card), published widths, fp32, B 4 x 512: the MoE FFN expert-parallel
+(32 of the 64 experts a card, token blocks over data), held as
+TinyLlama is, with 2 x 4 flash launches a card.
 Then ``compressed_psum`` over the whole mesh and ``hierarchical_psum``
 over its data groups against the CPU's sums of each rank's int8 round
 trip.  ``tests/test_torch_parallel.py`` holds the same path on a 2 x 2
@@ -33,6 +37,10 @@ import torch
 WORLD = 4
 TIMEOUT = 900
 FP64_RATIO = 2.0     # 16b-seeds' multiple, set before the run
+# arch: _step's overrides.  OLMoE at 4 of its 16 layers (published widths)
+# so that both the sharded and the unsharded step fit one card.
+ARCHS = {"tinyllama-1.1b": {}, "mamba2-1.3b": {"fp64": True},
+         "olmoe-1b-7b": {"n_layers": 4}}
 
 
 def _perturb(params, seed):
@@ -110,10 +118,14 @@ def _step(arch, mesh, device, b, s, overrides):
                     "ssd_scan": ssd_scan.launches.count}
         sgrads = [g.full_tensor() for g in sgrads]
         split = sum(v.to_local().shape != v.shape for v in sflat.values())
+        experts = sorted({v.to_local().shape[0] for k, v in sflat.items()
+                          if k.split("/")[-1] in ("wi_gate", "wi_up", "wo")
+                          and v.dim() == 3})
         sloss = float(sloss.detach().full_tensor())
     del sh, sflat
     read = {"worst_grad": max(_rel(g, w) for g, w in zip(sgrads, grads)
-                              if float(w.norm()) > 0)}
+                              if float(w.norm()) > 0),
+            "experts_per_card": experts}
     if fp64:
         exact = _fp64_grads(model, params, tokens)
         for name, gs in (("sharded", sgrads), ("unsharded", grads)):
@@ -137,10 +149,10 @@ def _rank(rank, world, store, out):
     try:
         mesh = make_mesh((2, 2), ("data", "model"), "cuda")
         res = {}
-        for arch, fp64 in (("tinyllama-1.1b", False), ("mamba2-1.3b", True)):
+        for arch, over in ARCHS.items():
             try:
                 loss, sloss, read, launches, split, layers = _step(
-                    arch, mesh, device, 4, 512, {"fp64": fp64})
+                    arch, mesh, device, 4, 512, dict(over))
             except Exception:      # recorded; the next arch still runs
                 res[arch] = {"error": traceback.format_exc()[-3000:]}
                 continue
@@ -192,7 +204,7 @@ def test_sharded_steps_on_four_cards(four_cards, tmp_path):
     assert [p.exitcode for p in procs] == [0] * WORLD
     for r in range(WORLD):
         res = json.loads((tmp_path / f"rank{r}.json").read_text())
-        for arch in ("tinyllama-1.1b", "mamba2-1.3b"):
+        for arch in ARCHS:
             a = res[arch]
             print(f"rank {r} {arch}: {a}")
             assert "error" not in a, a.get("error")
@@ -205,9 +217,12 @@ def test_sharded_steps_on_four_cards(four_cards, tmp_path):
             else:
                 assert a["worst_grad"] <= 2e-4, (r, arch)
             assert a["split_leaves"] > 0
-            kernel = "flash_attention" if arch.startswith("tiny") \
-                else "ssd_scan"
+            kernel = "ssd_scan" if arch.startswith("mamba") \
+                else "flash_attention"
             assert a["launches"][kernel] == 2 * a["layers"], (r, arch)
+            if arch.startswith("olmoe"):
+                # 64 experts over model 2: 32 a card, never gathered
+                assert a["experts_per_card"] == [32], (r, a)
         c = res["collectives"]
         print(f"rank {r} collectives: {c}")
         assert c["residual_exact"]

@@ -452,17 +452,19 @@ def _tree(flat):
     return tree
 
 
-def _family_reference(arch, out_dir):
+def _family_reference(arch, out_dir, overrides=None):
     """JAX's single-device loss and gradients of the reduced fp32 model
     (init ``PRNGKey(7)``; Mamba2 / Zamba2's zero-initialised leaves
-    perturbed) on a seeded numpy batch of every input it takes; the
-    weights and the batch are written for the ranks."""
+    perturbed; ``overrides`` replaced in the config) on a seeded numpy
+    batch of every input it takes; the weights and the batch are written
+    for the ranks."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_config
     from repro.configs.base import ShapeSpec
     from repro.models import build_model
-    cfg = get_config(arch).reduced().replace(dtype="float32", remat="none")
+    cfg = get_config(arch).reduced().replace(dtype="float32", remat="none",
+                                             **(overrides or {}))
     model = build_model(cfg)
     tree = jax.tree_util.tree_map(
         np.asarray, model.init(jax.random.PRNGKey(7))[0])
@@ -498,8 +500,9 @@ def _family_reference(arch, out_dir):
 def _families_rank(rank, world, out_dir):
     """Rank body: for each family, loss and gradients of the reduced fp32
     model from JAX's weights, with DTensor parameters on a 2x2 mesh (the
-    SSD and the flash kernels through local_map, the MoE FFN
-    replicated); rank 0 writes the full gradients."""
+    SSD and the flash kernels through local_map on head and batch
+    shards, the MoE FFN expert-parallel); rank 0 writes the full
+    gradients."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
