@@ -203,13 +203,38 @@ Phases, in order; each prints one line and any failure exits non-zero:
    tolerances; OLMoE-1B-7B's ``expert_partial`` over 2 token blocks and
    16 expert blocks: the unsharded FFN's kept set exactly, the partials'
    sum within relative L2 1e-5;
-18. the kernel table as one JSON line (each row with the variant of the
+18. the examples (``examples/torch_*.py``; ``--only 18`` runs 18a-18c):
+18a. the serving example through its ``build`` / ``run`` and a
+   ``Recorder`` that keeps each prompt's handle, at TinyLlama-1.1B's
+   published widths in bf16 (``--no-reduced --dtype bfloat16 --max-new
+   64``): the default mix (12 requests and 2 long prompts of 192 tokens,
+   3 client threads of the reference's ``run_serving_workload``, 2
+   shards under IBR), once under ``chunked`` and once under ``packed``:
+   every request completes, none fails, the prefix cache hits, no page
+   outlives the session, one paged ``mma`` launch a layer a decode step
+   (and a rider chunk) and one packed ``wgmma`` launch a layer a prefill
+   chunk, and every stream is held to its uninterrupted run (one request
+   at a time on one shard) by ``held()``;
+18b. the same mix under a paced stall: 8 clients (more than
+   ``max_batch`` 4), 0.2 s between a client's requests, shard 0 stalled
+   for 3 s after its first completion, the heartbeat timeout cut to 1 s
+   in the example's config, the watchdog migrating: at least one
+   migration, at least one by re-prefill (the watchdog found the request
+   queued or prefilling, no pages carried), none failed, no page leaked,
+   launches as 18a, every stream held to its uninterrupted run;
+18c. the training example, reduced fp32 as the reference's: 20 steps,
+   then ``--resume`` for 10 into the same fresh directory: the second
+   run starts at step 20, every loss finite, the first run's last five
+   losses average below its first five, and one flash ``fma`` launch a
+   layer a step (60);
+19. the kernel table as one JSON line (each row with the variant of the
    main path; the paged row's launches count the verify chunks of phases
    12 and 13b, the riders of phases 6 and 12 and the decode steps of
-   17a, the packed row's also 17a's prefill chunks, the flash row's
-   those of phases 10, 14a, 14b, 15a, 15b, 16b-16d, 17b and 17d, the SSD
-   row's those of phases 10, 16b and 17d), the card line, and the result
-   line ``{"ok": true, "device": {...}}`` last.
+   17a and 18a-18b, the packed row's also 17a's and 18a-18b's prefill
+   chunks, the flash row's those of phases 10, 14a, 14b, 15a, 15b,
+   16b-16d, 17b, 17d and 18c, the SSD row's those of phases 10, 16b and
+   17d), the card line, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 ``--only 7,13c`` runs just those phases, for iterating on a few: it
 prints no kernel table and no result line.  With no argument every phase
@@ -3098,6 +3123,256 @@ def split_bodies(torch):
     return lines, launches
 
 
+# ---------------------------------------------------------- phase 18
+
+# the serving example at full width: TinyLlama-1.1B in bf16, 64 new tokens
+EXAMPLE_ARGS = ["--no-reduced", "--dtype", "bfloat16", "--max-new", "64"]
+# 18b: shard 0 stalls for 3 s after its first completion; 8 clients (more
+# than max_batch 4) put five requests on shard 0 in the first wave, so one
+# of them is still queued when the stall begins
+STALL_ARGS = ["--clients", "8", "--pace-s", "0.2", "--watchdog", "migrate",
+              "--fault", "stall:shard=0,after_done=1,duration_s=3"]
+
+
+def load_example(name):
+    """``examples/<name>.py`` of the checkout, as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class ExampleServing:
+    """Phases 18a and 18b: the serving example's model, weights and
+    config (``build``), built once, and each prompt's uninterrupted run:
+    one request at a time on one shard of the example's config."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ex = load_example("torch_serve_paged")
+        self.args = self.ex.parse(EXAMPLE_ARGS + ["--device", DEVICE])
+        self.cfg, self.model, self.params, self.config = \
+            self.ex.build(self.args)
+        self.refs = {}
+
+    def serve(self, args, config):
+        """One run of the example's workload (``run`` through its
+        ``Recorder``) on a fresh, warmed session.  Returns (result,
+        [(prompt, handle)], launches, pages leaked per shard after close,
+        migrations seen by the watchdog as (req_id, status, carried),
+        wall seconds)."""
+        from repro_torch import serving
+        session = serving.serve(self.model, self.params, config,
+                                device=DEVICE, start=False)
+        moves = []
+        watchdog = session.engine.watchdog
+        migrate = watchdog._migrate_request
+
+        def observed(source, req, now, seq=None):
+            # a decoding sequence arrives with its pages (steal_live set
+            # _carried); a queued or prefilling one is re-prefilled
+            moves.append((req.req_id, req.status, req._carried is not None))
+            return migrate(source, req, now, seq=seq)
+
+        watchdog._migrate_request = observed
+        try:
+            session.warm()
+            session.start()
+            reset_launches()
+            rec = self.ex.Recorder(session)
+            t0 = time.perf_counter()
+            res = self.ex.run(rec, args)
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            session.close()
+        leaked = [s.config.num_pages - s.pool.free_count()
+                  for s in session.engine.shards]
+        return res, list(rec.handles), counts, leaked, moves, wall
+
+    def uninterrupted(self, prompts):
+        """Each prompt's tokens, one request at a time on one shard."""
+        from repro_torch import serving
+        todo = [p for p in prompts if tuple(p) not in self.refs]
+        if todo:
+            with serving.serve(self.model, self.params,
+                               self.config.replace(num_shards=1),
+                               device=DEVICE) as session:
+                for p in todo:
+                    self.refs[tuple(p)] = session.submit(
+                        p, max_new_tokens=self.args.max_new).result(
+                            timeout=600)
+        return [self.refs[tuple(p)] for p in prompts]
+
+    def held(self, label, handles):
+        """Hold every stream to its uninterrupted run (:func:`hold_streams`,
+        section 2's 1e-3 rule)."""
+        prompts = [p for p, _ in handles]
+        outs = [h.result(timeout=600) for _, h in handles]
+        return hold_streams(label, self.torch, self.model, self.params,
+                            prompts, outs, self.uninterrupted(prompts),
+                            [None] * len(prompts))
+
+    def check(self, label, res, handles, leaked):
+        n = len(handles)
+        if res.requests != n or res.failed or res.incomplete or \
+                res.session_stats["totals"]["completed"] != n:
+            raise AssertionError(
+                f"{label}: {res.requests} requests, completed "
+                f"{res.session_stats['totals']['completed']}, failed "
+                f"{res.failed}, incomplete {res.incomplete}")
+        if any(leaked):
+            raise AssertionError(f"{label}: pages leaked per shard after "
+                                 f"close {leaked}")
+
+    def close(self):
+        del self.params
+        self.torch.cuda.empty_cache()
+
+
+def check_example_launches(label, cfg, totals, counts):
+    """Every attention of the example's bf16 run went through a kernel
+    of the main path: one paged ``mma`` launch a layer for each decode
+    step and each packed chunk that carried decode riders, one packed
+    ``wgmma`` launch a layer for each prefill chunk (a ``chunked``
+    chunk is a one-segment packed chunk)."""
+    want = {"paged_attention": cfg.n_layers * (totals["decode_steps"] +
+                                               totals["rider_chunks"]),
+            "packed_prefill_attention":
+                cfg.n_layers * totals["prefill_chunks"]}
+    got = {k: counts[k] for k in want}
+    variants = (counts["paged_by_variant"], counts["packed_by_variant"])
+    if got != want or min(got.values()) < 1 or variants != (
+            {"mma": want["paged_attention"]},
+            {"wgmma": want["packed_prefill_attention"]}):
+        raise AssertionError(f"{label}: launches {got} by variant "
+                             f"{variants}, want {want}, all paged mma and "
+                             f"packed wgmma")
+
+
+def serve_example(serving_ex, scheduler):
+    """18a: the serving example's default mix (12 requests and 2 long
+    prompts of 192 tokens, 3 clients, 2 shards under IBR) at TinyLlama-
+    1.1B's published widths in bf16, 64 new tokens, under ``scheduler``:
+    every request completes, none fails, the prefix cache hits, no page
+    outlives the session, and every stream is held to its uninterrupted
+    run.  Returns (summary, launches)."""
+    ex = serving_ex.ex
+    args = ex.parse(EXAMPLE_ARGS + ["--device", DEVICE, "--scheduler",
+                                    scheduler])
+    label = f"18a {scheduler}"
+    res, handles, counts, leaked, moves, wall = serving_ex.serve(
+        args, ex.serving_config(args))
+    serving_ex.check(label, res, handles, leaked)
+    if res.prefix_hits < 1 or moves:
+        raise AssertionError(f"{label}: prefix hits {res.prefix_hits}, "
+                             f"migrations {len(moves)} (want > 0 and 0)")
+    totals = res.session_stats["totals"]
+    check_example_launches(label, serving_ex.cfg, totals, counts)
+    tokens = serving_ex.held(label, handles)
+    launches = {k: counts[k] for k in ("paged_attention",
+                                       "packed_prefill_attention")}
+    return {"scheduler": scheduler, "requests": res.requests,
+            "completed": totals["completed"], "failed": res.failed,
+            "new_tokens": res.tokens, "prefix_hits": res.prefix_hits,
+            "wall_s": wall, "tok_per_s": res.tok_per_s,
+            "ttft_p99_ms": res.ttft_p99_s * 1e3,
+            "itl_p99_ms": res.itl_p99_s * 1e3,
+            "decode_steps": totals["decode_steps"],
+            "prefill_chunks": totals["prefill_chunks"],
+            "packed_chunks": totals["packed_chunks"],
+            "pages_leaked_after_close": leaked, "tokens": tokens,
+            "launches": launches}, launches
+
+
+def serve_example_stall(serving_ex):
+    """18b: the example's mix under a paced stall: ``STALL_ARGS`` (8
+    clients, 0.2 s between a client's requests, shard 0 stalled for 3 s
+    after its first completion, the watchdog migrating), with the
+    heartbeat timeout cut to 1 s in the example's config (its default,
+    10 s, would outlast the stall).  At least one migration, at least
+    one of them by re-prefill (the watchdog found the request waiting or
+    prefilling, with no pages carried), none failed, no page leaked, and
+    every stream held to its uninterrupted run.  Returns (summary,
+    launches)."""
+    ex = serving_ex.ex
+    args = ex.parse(EXAMPLE_ARGS + ["--device", DEVICE] + STALL_ARGS)
+    config = ex.serving_config(args).replace(heartbeat_timeout_s=1.0,
+                                             watchdog_interval_s=0.02)
+    res, handles, counts, leaked, moves, wall = serving_ex.serve(args,
+                                                                 config)
+    serving_ex.check("18b", res, handles, leaked)
+    totals = res.session_stats["totals"]
+    check_example_launches("18b", serving_ex.cfg, totals, counts)
+    reprefilled = [m for m in moves if not m[2]]
+    if res.migrations < 1 or not reprefilled:
+        raise AssertionError(f"18b: {res.migrations} migrations, moves "
+                             f"(req, state, carried) {moves}: want one "
+                             f"by re-prefill")
+    index = {h.req_id: i for i, (_, h) in enumerate(handles)}
+    tokens = serving_ex.held("18b", handles)
+    return {"requests": res.requests, "completed": totals["completed"],
+            "failed": res.failed, "migrations": res.migrations,
+            "heartbeat_misses": res.heartbeat_misses,
+            "moves": [{"request": index[rid], "state_at_steal": state,
+                       "path": "pages carried" if carried
+                       else "re-prefill"} for rid, state, carried in moves],
+            "reprefilled": len(reprefilled), "wall_s": wall,
+            "pages_leaked_after_close": leaked, "tokens": tokens}, \
+        {k: counts[k] for k in ("paged_attention",
+                                "packed_prefill_attention")}
+
+
+def train_example(torch):
+    """18c: the training example on the card, reduced fp32 as the
+    reference's: ``--steps 20``, then ``--resume --steps 10`` into the
+    same fresh directory.  The second run starts at step 20, every loss
+    is finite, the first run's last five losses average below its first
+    five, and every flash launch is the ``fma`` variant, one a layer a
+    step (through ``FlashAttentionFn``).  Returns (summary, launches)."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    ex = load_example("torch_train_lm")
+    n_layers = get_config("tinyllama-1.1b").reduced().n_layers
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", DEVICE, "--ckpt-dir", tmp]
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            first = ex.main(argv + ["--steps", "20"])
+            second = ex.main(argv + ["--resume", "--steps", "10"])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        fma = flash_attention.launches.of("fma")
+    losses = first["losses"] + second["losses"]
+    head, tail = np.mean(first["losses"][:5]), np.mean(first["losses"][-5:])
+    if (first["start"], first["step"], second["start"], second["step"]) != \
+            (0, 20, 20, 30):
+        raise AssertionError(f"18c: runs {first['start']}->{first['step']}"
+                             f" and {second['start']}->{second['step']}, "
+                             f"want 0->20 and 20->30")
+    if not all(math.isfinite(x) for x in losses) or not tail < head:
+        raise AssertionError(f"18c: losses {losses} (last five of the "
+                             f"first run must average below its first "
+                             f"five)")
+    want = n_layers * 30
+    if launches["flash_attention"] != want or fma != want:
+        raise AssertionError(f"18c: flash launches "
+                             f"{launches['flash_attention']} ({fma} fma), "
+                             f"want {want} fma (one a layer a step)")
+    final = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith("final loss")]
+    return {"runs": "0->20, resumed 20->30", "first_five": head,
+            "last_five": tail, "final_lines": final, "wall_s": wall,
+            "flash_launches": launches["flash_attention"],
+            "flash_fma": fma}, launches
+
 # phase 7's rows at the models' own attention shapes: (Hkv, S, shape)
 FLASH_MODEL_CASES = [
     # DeepSeek-V2's MLA prefill (D 192 = nope 128 + rope 64)
@@ -3112,12 +3387,14 @@ FLASH_MODEL_CASES = [
 
 PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
           "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b",
-          "16b-seeds", "16c", "16d", "17a", "17b", "17c", "17d")
+          "16b-seeds", "16c", "16d", "17a", "17b", "17c", "17d", "18a",
+          "18b", "18c")
 
 
 def parse_only(argv):
     """``--only 7,13c``: run just those phases (to iterate on a few; the
-    kernel table then is not printed; ``16`` names 16a-16d).  No argument
+    kernel table then is not printed; ``16``, ``17`` and ``18`` name
+    their lettered phases).  No argument
     runs every phase."""
     if not argv:
         return None
@@ -3128,6 +3405,8 @@ def parse_only(argv):
         only = (only - {"16"}) | {"16a", "16b", "16b-seeds", "16c", "16d"}
     if "17" in only:
         only = (only - {"17"}) | {"17a", "17b", "17c", "17d"}
+    if "18" in only:
+        only = (only - {"18"}) | {"18a", "18b", "18c"}
     if not only <= set(PHASES):
         raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}; "
                          f"known: {', '.join(PHASES)}")
@@ -3414,6 +3693,28 @@ def main(argv) -> int:
         for line in lines:
             say(f"[17d split bodies] {line} [{card}]")
         say(f"[17d split bodies] {time.perf_counter() - t0:.1f} s")
+
+    serving_ex = ExampleServing(torch) if on("18a") or on("18b") else None
+    for scheduler in ("chunked", "packed") if on("18a") else ():
+        t0 = time.perf_counter()
+        summary, path_launches = serve_example(serving_ex, scheduler)
+        add(path_launches)
+        say(f"[18a serve example {scheduler}] {json.dumps(summary)} "
+            f"[{card}] {time.perf_counter() - t0:.1f} s")
+    if on("18b"):
+        t0 = time.perf_counter()
+        summary, path_launches = serve_example_stall(serving_ex)
+        add(path_launches)
+        say(f"[18b serve example stall] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+    if serving_ex is not None:
+        serving_ex.close()
+    if on("18c"):
+        t0 = time.perf_counter()
+        summary, path_launches = train_example(torch)
+        add(path_launches)
+        say(f"[18c train example] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
 
     if only is None:
         table = []

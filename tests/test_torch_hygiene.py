@@ -2,9 +2,10 @@
 
 * Importing every ``repro_torch`` module loads no ``jax*`` and no
   ``repro.*`` module (checked in a fresh interpreter).
-* No source of the port, nor ``chip_smoke.py``, imports JAX or the JAX
-  package.  Import statements are found with ``ast``: the verbatim copy of
-  ``api/__init__.py`` quotes ``from repro import api`` in its docstring.
+* No source of the port, nor its examples (``examples/torch_*.py``), nor
+  ``chip_smoke.py``, imports JAX or the JAX package.  Import statements
+  are found with ``ast``: the verbatim copy of ``api/__init__.py`` quotes
+  ``from repro import api`` in its docstring.
 * Every host-only module the port copies verbatim is, as text, identical
   to the JAX package's file, so the paper's SMR/SCOT code stays one code
   in two packages."""
@@ -31,7 +32,9 @@ VERBATIM = sorted(
     [str(p.relative_to(REF)) for d in COPIED_DIRS
      for p in (REF / d).glob("*.py")] + list(COPIED_FILES))
 PORT_SOURCES = sorted(str(p.relative_to(ROOT))
-                      for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+                      for p in PORT.rglob("*.py")) + sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "examples").glob("torch_*.py")) + ["chip_smoke.py"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
