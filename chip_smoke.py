@@ -18,14 +18,15 @@ Phases, in order; each prints one line and any failure exits non-zero:
    fewest blocks, eight splits of one kv head each);
 4. the packed-prefill kernel against its plain version at the packed
    chunk's shapes (C = 256 lanes, 1 and 8 segments), likewise, each row
-   naming the variant that ran (``wgmma`` for bf16, ``fma`` for fp32) and
-   the device time of one launch read from ``torch.profiler`` beside the
-   CUDA-event mean;
+   naming the variant that ran (``wgmma`` for bf16, ``tf32x3`` for fp32)
+   and the device time of one launch read from ``torch.profiler`` beside
+   the CUDA-event mean; and the 8-segment chunk at D = 96 on the ``fma``
+   variant, in both dtypes (padding exactly 0);
 4b. the packed-prefill kernel at the speculative verify
    chunk's layout, built by the engine's ``verify_lanes``: TinyLlama's
    widths, max_batch 8 x (spec_k 4 + 1) = 40 lanes, draft depths 0-4 so
    dead lanes sit between segments, one row unoccupied, two rows whose
-   dead lanes lie past their page run; fp32 (``fma``) and bf16
+   dead lanes lie past their page run; fp32 (``tf32x3``) and bf16
    (``wgmma``); dead lanes must be exactly 0; times as phase 4;
 5. serving TinyLlama-1.1B at full width in fp32 (seeded random weights)
    under the ``chunked`` and ``packed`` schedulers, holding the greedy
@@ -46,7 +47,11 @@ Phases, in order; each prints one line and any failure exits non-zero:
    kernel, plain, library (one causal GQA ``scaled_dot_product_attention``
    call) and bound times, the variant and the profiler's device time, as
    in phase 4 (causal rows compare with a causal call, full rows with a
-   full one);
+   full one), and for a tensor-core variant (``wgmma`` bf16, ``tf32x3``
+   fp32) the times of both its tiles (64 and 128 query rows a block) in
+   the same call; and the ``fma`` variant, fp32 and bf16, at 18c's
+   training shape (B = 8, S = 64, H = 4, Hkv = 2, D = 16, timed) and at
+   D = 96 (B = 4, S = 1000, H = 32, Hkv = 4);
 8. the SSD kernel against its plain version at the Mamba2 block's shapes
    (B = 4, S = 1024 and 1000, H = 64, P = 64, N = 128 as Mamba2-1.3B and
    64 as Zamba2-1.2B, chunk 128, with d_skip), fp32 and bf16, likewise,
@@ -83,8 +88,8 @@ Phases, in order; each prints one line and any failure exits non-zero:
    same sampler keyed by absolute position; ``spec_k=4`` greedy tokens
    equal plain greedy (both with a near-tie exception, top-2 gap < 1e-3);
    a spec-sampled run gives identical tokens in a fresh session; every
-   packed launch is a prefill layer and every paged launch a verify layer
-   (the verify lanes run as paged rows), all of the ``fma`` variant; the
+   packed launch is a prefill layer (``tf32x3``) and every paged launch a
+   verify layer (the verify lanes run as paged rows, ``fma``); the
    accept rate and verify launches are printed, and the first op whose
    bytes differ between the verify chunk's x_last lane and the decode
    step at the same position.  In bf16, ``spec_k=4`` greedy under
@@ -120,7 +125,8 @@ Phases, in order; each prints one line and any failure exits non-zero:
    factor E / k (no token dropped): ``logits_fn`` over 2 prompts of 256
    tokens held against ``decode_step`` at every position, then 16 greedy
    tokens against the forward (rtol = atol = 2e-3); every flash launch
-   the ``fma`` variant, 16 and 3 per forward;
+   the variant ``kernel_variant`` names (``tf32x3``: D 128 and 192), 16
+   and 3 per forward;
 14b. both in bf16 at capacity factor 1.25: prefill of 4 (OLMoE) and 2
    (DeepSeek-V2) prompts of 1024 tokens and 32 decode steps, timed;
    finite logits; every flash launch ``wgmma`` (D 128 and 192); the
@@ -132,9 +138,9 @@ Phases, in order; each prints one line and any failure exits non-zero:
    128 tokens (Whisper: against 2 x 1500 frames; Qwen2-VL: text at M-RoPE
    positions t = h = w = i) held against ``decode_step`` at every position
    (rtol = atol = 2e-3; Whisper's cross cache is each decoder layer's
-   K/V of the port's own encoder memory); every flash launch the ``fma``
-   variant, 18 (Whisper: 6 encoder, 6 decoder self, 6 cross) and 8 per
-   forward;
+   K/V of the port's own encoder memory); every flash launch the
+   ``tf32x3`` variant (D 64 and 128), 18 (Whisper: 6 encoder, 6 decoder
+   self, 6 cross) and 8 per forward;
 15b. both in bf16: Whisper over 4 x 1500 frames and 448 tokens (its text
    context), Qwen2-VL over 2 x 1024 positions of which 256 are patch
    embeddings on a 16 x 16 grid at t = 0 and 768 text tokens after them,
@@ -225,16 +231,22 @@ Phases, in order; each prints one line and any failure exits non-zero:
 18c. the training example, reduced fp32 as the reference's: 20 steps,
    then ``--resume`` for 10 into the same fresh directory: the second
    run starts at step 20, every loss finite, the first run's last five
-   losses average below its first five, and one flash ``fma`` launch a
-   layer a step (60);
+   losses average below its first five, and one flash launch a layer a
+   step (60), of the variant ``kernel_variant`` names at the reduced
+   config's D 16 (``fma``);
 19. the kernel table as one JSON line (each row with the variant of the
-   main path; the paged row's launches count the verify chunks of phases
-   12 and 13b, the riders of phases 6 and 12 and the decode steps of
-   17a and 18a-18b, the packed row's also 17a's and 18a-18b's prefill
-   chunks, the flash row's those of phases 10, 14a, 14b, 15a, 15b,
-   16b-16d, 17b, 17d and 18c, the SSD row's those of phases 10, 16b and
-   17d), the card line, and the result line ``{"ok": true, "device":
-   {...}}`` last.
+   main path and that variant's launches; the paged row's launches, of
+   either variant, count the verify chunks of phases 12 and 13b, the
+   riders of phases 6 and 12 and the decode steps of 17a and 18a-18b;
+   the packed ``wgmma`` row's also 17a's and 18a-18b's prefill chunks;
+   the flash ``wgmma`` row's those of phases 10, 14b, 15b, 16c and the
+   bf16 runs of 16d and 17d; the SSD row's, of either variant, those of
+   phases 10, 16b and 17d; a row for each other variant of flash and
+   packed, ``flash_attention_tf32x3`` with the ``tf32x3`` launches of
+   phases 14a, 15a, 16b, 16d, 17b and 17d, ``flash_attention_fma`` with
+   18c's, ``packed_prefill_attention_tf32x3`` with those of phase 12's
+   fp32 prefill chunks; a row of no launch fails), the card line, and the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 ``--only 7,13c`` runs just those phases, for iterating on a few: it
 prints no kernel table and no result line.  With no argument every phase
@@ -242,7 +254,8 @@ runs.  ``--grad-seeds 0,1,2`` runs no phase: it measures 16b's Mamba2
 hold at those seeds beside an fp64 plain path (``grad_noise``).
 
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM, 989 TFLOP/s
-bf16 on the tensor cores, 67 TFLOP/s fp32 outside them.  It imports
+bf16 on the tensor cores, and for fp32 495 / 3 = 165 TFLOP/s (3xTF32 on
+the tensor cores, above the 67 TFLOP/s of fp32 FMA).  It imports
 nothing of JAX and nothing of the JAX package.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -261,7 +274,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# fp32 at 165 TFLOP/s: the 3xTF32 kernels do fp32-accurate work on the
+# tensor cores at 495 / 3 (three TF32 products a product), above the
+# card's 67 TFLOP/s of fp32 FMA, so that is the least time for fp32 work.
+PEAK_FLOPS = {"float32": 165e12, "bfloat16": 989e12}
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 PAGED_TPU = "src/repro/kernels/paged_attention.py:103"
 PACKED_TPU = "src/repro/kernels/packed_prefill.py:93"
@@ -341,8 +357,9 @@ def profiled_ms(torch, timer, fn, names, iters: int = 10):
 
 
 PACKED_KERNELS = ("packed_prefill_kernel", "plan_kernel", "partial_kernel",
-                  "combine_kernel")
-FLASH_KERNELS = ("flash_attention_kernel", "flash_tc_kernel")
+                  "partial_tf32x3_kernel", "combine_kernel")
+FLASH_KERNELS = ("flash_attention_kernel", "flash_tc_kernel",
+                 "flash_tf32x3_kernel")
 PAGED_KERNELS = ("paged_partial_kernel", "paged_combine_kernel",
                  "paged_mma_kernel")
 SSD_KERNELS = ("ssd_scan_kernel", "ssd_mma_kernel")
@@ -518,13 +535,13 @@ def paged_long_row(torch, timer, dtype, seed=3):
 # ----------------------------------------------------------- phase 4
 
 
-def packed_case(torch, dtype, n_segs, seed=4):
+def packed_case(torch, dtype, n_segs, seed=4, d=64):
     """Packed-chunk shapes: C = 256 lanes (the prefill budget; decode
-    riders run as the decode step beside the chunk).  With 8 segments: a
-    padding run in the middle of the chunk, three one-lane prompt tails,
-    and segment 1 sharing its first eight physical pages (a 64-token
-    prefix-cache hit) with segment 0."""
-    c, h, hkv, d, page, npg = 256, 32, 4, 64, 8, 128
+    riders run as the decode step beside the chunk), head dim ``d``.
+    With 8 segments: a padding run in the middle of the chunk, three
+    one-lane prompt tails, and segment 1 sharing its first eight physical
+    pages (a 64-token prefix-cache hit) with segment 0."""
+    c, h, hkv, page, npg = 256, 32, 4, 8, 128
     n_phys = 2048
     rng = np.random.RandomState(seed + n_segs)
     dt = getattr(torch, dtype)
@@ -589,15 +606,20 @@ def verify_case(torch, dtype, seed=12):
     return [a.to(DEVICE) for a in args], (rows, seg, pos, seg_ctx)
 
 
-def phase_packed(torch, timer, dtype, n_segs, case=None):
-    """One packed-prefill row: the packed chunk of ``n_segs`` segments, or
-    ``case`` (inputs as :func:`packed_case` returns them)."""
+def phase_packed(torch, timer, dtype, n_segs, case=None, d=64,
+                 want_variant=None):
+    """One packed-prefill row: the packed chunk of ``n_segs`` segments at
+    head dim ``d``, or ``case`` (inputs as :func:`packed_case` returns
+    them).  ``want_variant``: the variant that must serve the call."""
     from repro_torch.kernels import packed_prefill as pp
     (q, kp, vp, rows, seg, pos, ctx), (rows_np, seg_np, pos_np, ctx_np) = \
-        case or packed_case(torch, dtype, n_segs)
+        case or packed_case(torch, dtype, n_segs, d=d)
     want = pp.packed_prefill_plain(q, kp, vp, rows, seg, pos, ctx)
     variant = pp.kernel_variant(q.dtype, q.shape[2], q.shape[1] // kp.shape[2],
                                 q.device)
+    if want_variant is not None and variant != want_variant:
+        raise AssertionError(f"packed_prefill[S={n_segs}, D={q.shape[2]}]: "
+                             f"variant {variant}, want {want_variant}")
     before = pp.launches.of(variant)
     out = pp.packed_prefill_attention(q, kp, vp, rows, seg, pos, ctx)
     torch.cuda.synchronize()
@@ -1200,6 +1222,8 @@ def serve_spec_fp32(torch):
     published widths (seeded weights).  Returns (lines, launches)."""
     from repro_torch import serving
     from repro_torch.configs import get_config
+    from repro_torch.kernels import packed_prefill as pp
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build_model
 
     cfg = get_config("tinyllama-1.1b").replace(dtype="float32")
@@ -1218,10 +1242,18 @@ def serve_spec_fp32(torch):
         refs_g = [reference_greedy(torch, model, params, p, n_new)
                   for p in prompts]
     lines, launches = [], {}
+    # (paged, packed) variants of the verify and prefill launches
+    variants = (pa.kernel_variant(torch.float32, cfg.head_dim,
+                                  cfg.n_heads // cfg.n_kv_heads, DEVICE),
+                pp.kernel_variant(torch.float32, cfg.head_dim,
+                                  cfg.n_heads // cfg.n_kv_heads, DEVICE))
 
     def add(counts):
         for name in ("paged_attention", "packed_prefill_attention"):
             launches[name] = launches.get(name, 0) + counts[name]
+        for v, n in counts["packed_by_variant"].items():
+            key = f"packed_prefill_attention:{v}"
+            launches[key] = launches.get(key, 0) + n
 
     for sched in ("chunked", "packed"):
         outs, _, counts = serve_run(torch, model, params, prompts, n_new,
@@ -1234,7 +1266,7 @@ def serve_spec_fp32(torch):
                                      warm=True, spec_k=4, **conf)
     add(counts)
     n_verify = check_verify_launches("spec greedy fp32", cfg, totals, counts,
-                                     ("fma", "fma"))
+                                     variants)
     lines.append(f"spec_k 4 greedy: 4/4 requests match plain greedy "
                  f"({held('spec greedy', outs, refs_g)}); accept rate "
                  f"{totals['accept_rate']:.3f} ({totals['draft_accepted']}/"
@@ -1249,7 +1281,7 @@ def serve_spec_fp32(torch):
                                          scheduler="packed", **conf)
         add(counts)
         check_verify_launches("spec sampled fp32", cfg, totals, counts,
-                              ("fma", "fma"))
+                              variants)
         runs.append((outs, totals["accept_rate"]))
     if runs[0][0] != runs[1][0] or any(len(o) != n_new for o in runs[0][0]):
         raise AssertionError("spec sampled: a fresh session gave other "
@@ -1601,13 +1633,31 @@ def serve_migrate_bf16(torch):
 # ----------------------------------------------------------- phase 7
 
 
+class forced_rows:
+    """``with forced_rows(fa, r):`` the flash wrapper launches the
+    tensor-core tile of ``r`` query rows a block at every D (to time the
+    tile that ``fa.query_rows`` does not pick)."""
+
+    def __init__(self, fa, rows):
+        self.fa, self.rows = fa, rows
+
+    def __enter__(self):
+        self.saved = self.fa.query_rows
+        self.fa.query_rows = lambda d: self.rows
+
+    def __exit__(self, *exc):
+        self.fa.query_rows = self.saved
+
+
 def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7, b=4, h=32,
-                d=64, sk=None, causal=True):
+                d=64, sk=None, causal=True, want_variant=None):
     """Attention at a model's full-sequence shape: causal, B = 4, H = 32,
     D = 64, S tokens, Hkv kv heads (DeepSeek-V2's MLA prefill: B = 2,
     H = Hkv = 128, D = 192; Qwen2-VL: B = 2, H 64, Hkv 8, D 128), or
     not causal from S queries to ``sk`` keys (Whisper's encoder and
-    cross-attention).  Returns a row (times only if ``timed``)."""
+    cross-attention).  ``want_variant``: the variant that must serve the
+    call.
+    Returns a row (times only if ``timed``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     sk = s if sk is None else sk
@@ -1619,6 +1669,9 @@ def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7, b=4, h=32,
     label = f"flash_attention[S={s}, Sk={sk}, Hkv={hkv}, D={d}]"
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     variant = fa.kernel_variant(q.dtype, d, q.device)
+    if want_variant is not None and variant != want_variant:
+        raise AssertionError(f"{label}: variant {variant}, want "
+                             f"{want_variant}")
     before = fa.launches.of(variant)
     out = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -1639,6 +1692,15 @@ def phase_flash(torch, timer, dtype, s, hkv, timed, seed=7, b=4, h=32,
     flops = 4.0 * b * h * d * (s * (s + 1) / 2 if causal else s * sk)
     qt, kt, vt = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
     row["ms"] = timer.ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    if variant in ("wgmma", "tf32x3"):
+        # both tiles of the variant in this call: 64 and 128 query rows a
+        # block (``query_rows`` picks one; patched here to force the other)
+        row["rows"] = fa.query_rows(d)
+        row["ms_by_rows"] = {}
+        for r in (64, 128):
+            with forced_rows(fa, r):
+                row["ms_by_rows"][r] = timer.ms(
+                    lambda: fa.flash_attention_cuda(q, k, v, causal=causal))
     row["profiler_ms"] = profiled_ms(
         torch, timer, lambda: fa.flash_attention(q, k, v, causal=causal),
         FLASH_KERNELS)
@@ -1750,6 +1812,14 @@ def read_launches():
     from repro_torch.kernels import flash_attention, ssd_scan
     return {"ssd_scan": ssd_scan.launches.count,
             "flash_attention": flash_attention.launches.count}
+
+
+def variant_launches():
+    """Flash launches by variant since the last reset, keyed
+    ``flash_attention:<variant>`` (the kernel table's variant rows)."""
+    from repro_torch.kernels import flash_attention
+    return {f"flash_attention:{v}": n
+            for v, n in flash_attention.launches.by_variant.items()}
 
 
 def tc_launches():
@@ -1955,7 +2025,8 @@ def moe_fp32(torch, arch, b=2, s=256, n_new=16):
     time), ``logits_fn`` over B prompts of S tokens held against
     token-by-token ``decode_step`` at every position, then ``n_new``
     greedy tokens against the forward over prompt and tokens; every flash
-    launch the ``fma`` variant, one per attention layer of a forward.
+    launch the variant ``kernel_variant`` names for fp32 at the config's
+    head dim, one per attention layer of a forward.
     Returns (line, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -1968,17 +2039,19 @@ def moe_fp32(torch, arch, b=2, s=256, n_new=16):
     rng = np.random.RandomState(16)
     tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).to(
         DEVICE)
-    counted = {"flash_attention": 0}
+    variant = fa.kernel_variant(torch.float32, cfg.head_dim, DEVICE)
+    counted = {"flash_attention": 0, f"flash_attention:{variant}": 0}
 
     def forward(toks):
         reset_launches()
         logits, _ = model.logits_fn(params, {"tokens": toks})
         torch.cuda.synchronize()
-        if not fa.launches.count == fa.launches.of("fma") == per_forward:
+        if not fa.launches.count == fa.launches.of(variant) == per_forward:
             raise AssertionError(
                 f"{arch} fp32: flash launches per forward "
-                f"{fa.launches.by_variant}, want {per_forward} fma")
+                f"{fa.launches.by_variant}, want {per_forward} {variant}")
         counted["flash_attention"] += fa.launches.count
+        counted[f"flash_attention:{variant}"] += fa.launches.count
         return logits
 
     def step(cache, toks, t):
@@ -2014,7 +2087,7 @@ def moe_fp32(torch, arch, b=2, s=256, n_new=16):
             f"decode_step at every position max_abs_err {err_prompt:.3g}; "
             f"{n_new} greedy tokens vs forward max_abs_err {err_gen:.3g} "
             f"(tol {MODEL_TOL}); flash launches per forward {per_forward} "
-            f"fma; {wall:.1f} s"), counted
+            f"{variant}; {wall:.1f} s"), counted
 
 
 def moe_bf16(torch, arch, b, s=1024, n_new=32):
@@ -2202,22 +2275,24 @@ def family_fp32(torch, arch, b=2, s=128):
     (Whisper: against B x enc_seq frames; Qwen2-VL: text at t = h = w = i)
     held against token-by-token ``decode_step`` at every position (rtol =
     atol = 2e-3; Whisper's cross cache from :func:`cross_cache`); every
-    flash launch of the forward the ``fma`` variant, 18 (Whisper) and 8
-    (Qwen2-VL) per forward.  Returns (line, launches)."""
+    flash launch of the forward the variant ``kernel_variant`` names for
+    fp32 at the config's head dim, 18 (Whisper) and 8 (Qwen2-VL) per
+    forward.  Returns (line, launches)."""
     from repro_torch.kernels import flash_attention as fa
     model, params = family_model(torch, arch, dtype="float32")
     cfg = model.cfg
     per_forward = FAMILY_ARCHS[arch][1]
+    variant = fa.kernel_variant(torch.float32, cfg.head_dim, DEVICE)
     batch = family_inputs(torch, cfg, b, s, seed=15)
     t0 = time.perf_counter()
     with torch.inference_mode():
         reset_launches()
         full, _ = model.logits_fn(params, batch)
         torch.cuda.synchronize()
-        if not fa.launches.count == fa.launches.of("fma") == per_forward:
+        if not fa.launches.count == fa.launches.of(variant) == per_forward:
             raise AssertionError(
                 f"{arch} fp32: flash launches per forward "
-                f"{fa.launches.by_variant}, want {per_forward} fma")
+                f"{fa.launches.by_variant}, want {per_forward} {variant}")
         cache = model.init_cache(b, s, device=DEVICE)
         if cfg.family == "encdec":
             cross_cache(model, params, batch["frames"], cache)
@@ -2237,7 +2312,9 @@ def family_fp32(torch, arch, b=2, s=128):
             f"{f', {cfg.enc_seq} frames' if cfg.family == 'encdec' else ''}"
             f") vs decode_step at every position max_abs_err {err:.3g} "
             f"(tol {MODEL_TOL}); flash launches per forward {per_forward} "
-            f"fma; {wall:.1f} s"), {"flash_attention": per_forward}
+            f"{variant}; {wall:.1f} s"), {
+                "flash_attention": per_forward,
+                f"flash_attention:{variant}": per_forward}
 
 
 def family_bf16(torch, arch, b, s, n_patches=0, n_new=32):
@@ -2430,6 +2507,7 @@ def train_grad(torch, arch, b=2, s=512):
     if launches != want:
         raise AssertionError(f"16b {arch}: launches {launches}, want {want} "
                              f"(forward and remat recompute)")
+    launches.update(variant_launches())
     reset_launches()
     kernel = getattr(ops, name)
     setattr(ops, name, plain)
@@ -2664,8 +2742,8 @@ def train_restart(torch, b=4, s=256):
     launches = {"ssd_scan": 0, "flash_attention": 0}
 
     def count():
-        for k, v in read_launches().items():
-            launches[k] += v
+        for k, v in {**read_launches(), **variant_launches()}.items():
+            launches[k] = launches.get(k, 0) + v
         reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         def trainer(dtype, sub, every):
@@ -2842,6 +2920,7 @@ def sharded_step(torch, b=2, s=512):
                             "ssd_scan": 0}:
                 raise AssertionError(f"17b: sharded step launches "
                                      f"{launches}, want 44 flash")
+            launches.update(variant_launches())
             np.testing.assert_allclose(sh.losses[0], plain.losses[0],
                                        rtol=2e-5)
             ref = {k: v.detach() for k, v in
@@ -3034,6 +3113,8 @@ def split_bodies(torch):
             raise AssertionError(f"17d gqa {dtype}: {n} launches, want "
                                  f"{ways}")
         launches["flash_attention"] += n
+        key = f"flash_attention:{fa.kernel_variant(dt_, d, DEVICE)}"
+        launches[key] = launches.get(key, 0) + n
         err = close_enough(got, want, TOL[dtype])
         lines.append(f"(a) TinyLlama attention {dtype}: {n} gqa_local "
                      f"launches of {hl} q heads and 1 kv head, max_abs_err "
@@ -3330,15 +3411,19 @@ def train_example(torch):
     reference's: ``--steps 20``, then ``--resume --steps 10`` into the
     same fresh directory.  The second run starts at step 20, every loss
     is finite, the first run's last five losses average below its first
-    five, and every flash launch is the ``fma`` variant, one a layer a
-    step (through ``FlashAttentionFn``).  Returns (summary, launches)."""
+    five, and every flash launch is the variant ``kernel_variant`` names
+    for fp32 at the reduced config's head dim, one a layer a step (through
+    ``FlashAttentionFn``).  Returns (summary, launches)."""
     import contextlib
     import io
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention
     ex = load_example("torch_train_lm")
-    n_layers = get_config("tinyllama-1.1b").reduced().n_layers
+    reduced = get_config("tinyllama-1.1b").reduced()
+    n_layers = reduced.n_layers
+    variant = flash_attention.kernel_variant(torch.float32, reduced.head_dim,
+                                             DEVICE)
     printed = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--device", DEVICE, "--ckpt-dir", tmp]
@@ -3349,7 +3434,7 @@ def train_example(torch):
             second = ex.main(argv + ["--resume", "--steps", "10"])
         wall = time.perf_counter() - t0
         launches = read_launches()
-        fma = flash_attention.launches.of("fma")
+        of_variant = flash_attention.launches.of(variant)
     losses = first["losses"] + second["losses"]
     head, tail = np.mean(first["losses"][:5]), np.mean(first["losses"][-5:])
     if (first["start"], first["step"], second["start"], second["step"]) != \
@@ -3362,16 +3447,19 @@ def train_example(torch):
                              f"first run must average below its first "
                              f"five)")
     want = n_layers * 30
-    if launches["flash_attention"] != want or fma != want:
+    if launches["flash_attention"] != want or of_variant != want:
         raise AssertionError(f"18c: flash launches "
-                             f"{launches['flash_attention']} ({fma} fma), "
-                             f"want {want} fma (one a layer a step)")
+                             f"{launches['flash_attention']} ({of_variant} "
+                             f"{variant}), want {want} {variant} (one a "
+                             f"layer a step)")
+    launches[f"flash_attention:{variant}"] = of_variant
     final = [ln for ln in printed.getvalue().splitlines()
              if ln.startswith("final loss")]
     return {"runs": "0->20, resumed 20->30", "first_five": head,
             "last_five": tail, "final_lines": final, "wall_s": wall,
             "flash_launches": launches["flash_attention"],
-            "flash_fma": fma}, launches
+            "flash_variant": variant, "flash_of_variant": of_variant}, \
+        launches
 
 # phase 7's rows at the models' own attention shapes: (Hkv, S, shape)
 FLASH_MODEL_CASES = [
@@ -3383,6 +3471,14 @@ FLASH_MODEL_CASES = [
     (8, 448, dict(b=4, h=8, sk=1500, causal=False)),
     # Qwen2-VL-72B's text backbone
     (8, 1024, dict(b=2, h=64, d=128)),
+]
+# and at head dims outside the tensor-core set, on the ``fma`` variant:
+# 18c's training shape (the reduced TinyLlama: B 8, S 64, H 4, Hkv 2,
+# D 16; timed, the kernel table's ``fma`` row) and D 96 with GQA and a
+# ragged tail
+FLASH_FMA_CASES = [
+    (2, 64, dict(b=8, h=4, d=16, seed=18, want_variant="fma")),
+    (4, 1000, dict(d=96, want_variant="fma")),
 ]
 
 PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
@@ -3487,6 +3583,18 @@ def main(argv) -> int:
                 f"bound {row['bound_ms']:.4f} ({row['bound_by']}) [{card}] "
                 f"{time.perf_counter() - t0:.1f} s")
 
+    for dtype in ("float32", "bfloat16") if on("4") else ():
+        # the 8-segment chunk at a head dim outside the tensor-core set
+        t0 = time.perf_counter()
+        row = phase_packed(torch, timer, dtype, 8, d=96, want_variant="fma")
+        kernels[("packed", dtype, 8, 96)] = row
+        say(f"[4 packed {dtype} S=8 D=96] variant {row['variant']} "
+            f"max_abs_err {row['max_abs_err']:.3g}, padding exactly 0; ms "
+            f"{row['ms']:.4f} profiler {fmt_ms(row['profiler_ms'])} plain "
+            f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+
     for dtype in ("float32", "bfloat16") if on("4b") else ():
         t0 = time.perf_counter()
         row = phase_packed(torch, timer, dtype, 8,
@@ -3515,11 +3623,11 @@ def main(argv) -> int:
     flash_cases = [(dtype, hkv, s, {}) for dtype in ("float32", "bfloat16")
                    for hkv in (32, 4) for s in (1024, 1000)] + [
         (dtype, hkv, s, shape) for dtype in ("float32", "bfloat16")
-        for hkv, s, shape in FLASH_MODEL_CASES]
+        for hkv, s, shape in FLASH_MODEL_CASES + FLASH_FMA_CASES]
     for dtype, hkv, s, shape in flash_cases if on("7") else ():
         t0 = time.perf_counter()
         row = phase_flash(torch, timer, dtype, s, hkv,
-                          timed=s in (1024, 1500, 448), **shape)
+                          timed=s in (1024, 1500, 448, 64), **shape)
         kernels[("flash", dtype, hkv, s, shape.get("d", 64),
                  shape.get("sk", s))] = row
         shown = " ".join(f"{k}={shape[k]}" for k in ("b", "h", "d", "sk")
@@ -3531,7 +3639,11 @@ def main(argv) -> int:
                 f"; ms {row['ms']:.4f} profiler "
                 f"{fmt_ms(row['profiler_ms'])} plain {row['plain_ms']:.4f} "
                 f"library {row['library_ms']:.4f} bound "
-                f"{row['bound_ms']:.4f} ({row['bound_by']}) [{card}]"
+                f"{row['bound_ms']:.4f} ({row['bound_by']})" + (
+                    f"; by query rows a block (query_rows {row['rows']}): "
+                    + ", ".join(f"{r} {t:.4f} ms" for r, t in
+                                row["ms_by_rows"].items())
+                    if "ms_by_rows" in row else "") + f" [{card}]"
                 if "ms" in row else "") +
             f" {time.perf_counter() - t0:.1f} s")
     for dtype in ("float32", "bfloat16") if on("8") else ():
@@ -3718,16 +3830,36 @@ def main(argv) -> int:
 
     if only is None:
         table = []
-        for key, name in ((("paged", "bfloat16"), "paged_attention"),
-                          (("packed", "bfloat16", 8),
-                           "packed_prefill_attention"),
-                          (("flash", "bfloat16", 32, 1024, 64, 1024),
-                           "flash_attention"),
-                          (("ssd", "bfloat16", 128, 1024), "ssd_scan")):
+        # The bf16 variant's launches of flash and packed: all of the
+        # kernel's less those of its other variants, which every phase
+        # that runs them counts by name (the fp32 paths and 18c).
+        for kernel in ("flash_attention", "packed_prefill_attention"):
+            launches[f"{kernel}:wgmma"] = launches.get(kernel, 0) - sum(
+                launches.get(f"{kernel}:{v}", 0) for v in ("tf32x3", "fma"))
+        # (phase row, table name, main-path launch key): one row a kernel,
+        # one a variant for flash and packed (each with its own launches;
+        # paged and SSD count all of theirs)
+        for key, name, count in (
+                (("paged", "bfloat16"), "paged_attention", "paged_attention"),
+                (("packed", "bfloat16", 8), "packed_prefill_attention",
+                 "packed_prefill_attention:wgmma"),
+                (("packed", "float32", 8), "packed_prefill_attention_tf32x3",
+                 "packed_prefill_attention:tf32x3"),
+                (("flash", "bfloat16", 32, 1024, 64, 1024), "flash_attention",
+                 "flash_attention:wgmma"),
+                (("flash", "float32", 32, 1024, 64, 1024),
+                 "flash_attention_tf32x3", "flash_attention:tf32x3"),
+                (("flash", "float32", 2, 64, 16, 64), "flash_attention_fma",
+                 "flash_attention:fma"),
+                (("ssd", "bfloat16", 128, 1024), "ssd_scan", "ssd_scan")):
             row = {k: v for k, v in kernels[key].items()
                    if k not in ("errs", "splits", "no_keys_profiler_ms",
-                                "long_row", "shares", "fma")}
-            row["launches"] = launches[name]
+                                "long_row", "shares", "fma", "rows",
+                                "ms_by_rows")}
+            row["name"] = name
+            row["launches"] = launches.get(count, 0)
+            if not row["launches"]:
+                raise AssertionError(f"{name}: no launch on the main path")
             table.append(row)
         say(json.dumps({"kernels": table}))
     else:

@@ -187,13 +187,15 @@ struct OnlineSoftmax {
   // Exponentiates s in place against the running maxima and returns in
   // corr the factor by which each row's output accumulator must shrink.
   // A row with nothing visible so far keeps m = -inf, l = 0 (corr 0 on an
-  // accumulator that is still 0).
-  __device__ __forceinline__ void step(float (&s)[32], float (&corr)[2]) {
+  // accumulator that is still 0).  N = 32 is a 64-key tile (N / 4 chunks
+  // of 8 keys).
+  template <int N>
+  __device__ __forceinline__ void step(float (&s)[N], float (&corr)[2]) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = m[h];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < N / 4; ++j)
         mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -202,7 +204,7 @@ struct OnlineSoftmax {
       m[h] = mx;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[4 * j + 2 * h + e];

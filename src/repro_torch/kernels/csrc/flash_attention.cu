@@ -1,4 +1,4 @@
-// Dense attention forward (flash attention) for Hopper: two variants.
+// Dense attention forward (flash attention) for Hopper: three variants.
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention.py::flash_attention (+ _flash_kernel).
@@ -17,32 +17,45 @@
 // 3.35 TB/s, and the arithmetic intensity of one (query tile, key tile)
 // pair is far above the card's ~295 flops/byte.  At DeepSeek-V2's MLA
 // prefill (B = 2, S = 1024, H = 128, D = 192) the two come close: 403 MB
-// take 0.120 ms, 103 GFLOP 0.104 ms.  So the design feeds the tensor
-// cores:
+// take 0.120 ms, 103 GFLOP 0.104 ms.  In fp32 the same work is bound by
+// operations at 165 TFLOP/s (3xTF32) or 67 (FMA).  So the design feeds the
+// tensor cores:
 //
 // * flash_attention_tc_launch -- bf16 with D = 64, 128 or 192 (MLA's
-//   nope 128 + rope 64, V padded to match).  One warpgroup
-//   (128 threads) per tile of 64 query rows.  QK^T is wgmma m64n64k16 with
-//   Q and K read from shared memory in the 128-byte-swizzled layout; PV is
-//   wgmma m64n64k16 with P in registers (bf16, after the fp32 rescale) and
-//   V read through the descriptor's transpose bit.  Q, K and V tiles come in
-//   by TMA over 4-D tensor maps (D, heads, S, B) with box (64, 1, 64, 1),
-//   one box per 64-wide column block (a 128-byte swizzle row; D = 192
-//   takes three), so a ragged S tail is zero-filled inside its own batch;
-//   K/V tiles sit in a ring of kStages stages completed on mbarriers, and
-//   each tile's copy overlaps the products of the tiles before it.  The
-//   scale is folded with log2(e) into exp2 on the fp32 scores.  Shared
-//   helpers: attn_tc.cuh.
-// * flash_attention_launch -- every other call (fp32, and bf16 with any
+//   nope 128 + rope 64, V padded to match).  One or two consumer
+//   warpgroups (128 threads each) per tile of 64 or 128 query rows, each
+//   warpgroup owning 64 rows and all of them sharing every K/V stage: two
+//   halve the K/V traffic per query row and put 8 warps on an SM at
+//   D = 192, where one 64-row block's shared memory leaves room for one
+//   block of 4 (the wrapper's query_rows chooses).  QK^T is wgmma
+//   m64n64k16 with Q and K read from shared memory in the 128-byte-swizzled
+//   layout; PV is wgmma m64n64k16 with P in registers (bf16, after the fp32
+//   rescale) and V read through the descriptor's transpose bit.  Q, K and
+//   V tiles come in by TMA over 4-D tensor maps (D, heads, S, B) with box
+//   (64, 1, 64, 1), one box per 64-wide column block (a 128-byte swizzle
+//   row; D = 192 takes three), so a ragged S tail is zero-filled inside its
+//   own batch; K/V tiles sit in a ring of kStages stages completed on
+//   mbarriers, and each tile's copy overlaps the products of the tiles
+//   before it.  The scale is folded with log2(e) into exp2 on the fp32
+//   scores.  Shared helpers: attn_tc.cuh.
+// * flash_attention_tf32x3_launch -- fp32 with D = 64, 128 or 192.  The
+//   same tiling on mma.sync m16n8k8 TF32 with every operand split in two
+//   TF32 numbers (3xTF32, tf32x3.cuh): fp32's accuracy at the TF32 rate.
+//   4 or 8 warps own 16 query rows each (a 64- or 128-row tile, the
+//   wrapper's query_rows chooses); K/V tiles of 64 keys (32 at D = 192,
+//   where two stages of 64 fp32 keys would not fit beside Q) come in by
+//   16-byte cp.async into a two-stage ring of row-major fp32 at a padded
+//   stride; Q stays in shared memory and is split as it is read.  A warp
+//   skips a key tile wholly past its own diagonal.
+// * flash_attention_launch -- every other call (fp32 or bf16 with any
 //   other D): the first version, fp32 FMAs from shared memory.  Each of
 //   its 256 threads owns 4 query rows x 4 keys of a 64 x 64 score tile and
-//   the same 4 rows x D / 16 output columns (D <= 192; at 192 the block
-//   holds 165 KB of shared memory).  fp32 stays off the tensor
-//   cores: its tolerance is 3e-5, and TF32 keeps about 1e-3.
+//   the same 4 rows x D / 16 output columns (D <= 192).
 #include <cuda.h>
 
 #include "attn_tc.cuh"
 #include "common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -217,25 +230,34 @@ namespace tcf {
 using namespace repro::tc;
 using repro::tc::kThreads;  // hides the FMA variant's 256
 
-constexpr int kStages = 2;  // K/V ring: tile t + 2 loads while t computes
+// K/V ring: tile t + kStages loads while t computes.  Three stages at
+// D = 192, where a 64-key tile of K and V is 48 KB, two below.
+template <int D>
+__host__ __device__ constexpr int stages_of() {
+  return D == 192 ? 3 : 2;
+}
 
 template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes() {
   return kRows * D * 2;  // 64 rows (queries or keys) of D bf16
 }
 
-// Q, then kStages K tiles, then kStages V tiles, then the mbarriers
-// (Q, then one per stage), from a 1024-byte-aligned base.
-template <int D>
+// WG query tiles of 64 rows (one a warpgroup), then kStages K tiles, then
+// kStages V tiles, then the mbarriers (Q, then one per stage), from a
+// 1024-byte-aligned base.
+template <int D, int WG>
 constexpr size_t smem_bytes() {
-  return (1 + 2 * kStages) * tile_bytes<D>() + 8 * (1 + kStages) + 1024;
+  constexpr int kStages = stages_of<D>();
+  return (WG + 2 * kStages) * tile_bytes<D>() + 8 * (1 + kStages) + 1024;
 }
 
 // Grid: one block per (query tile, head, batch), flattened so that every
 // (head, batch) of the heaviest query tile (the last: it walks the most
-// keys when causal) is issued before any lighter one.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// keys when causal) is issued before any lighter one.  A block is WG
+// consumer warpgroups, warpgroup w owning query rows q0 + 64 w ..
+// q0 + 64 w + 63; they share every K/V stage.
+template <int D, int WG>
+__global__ void __launch_bounds__(kThreads * WG)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -243,22 +265,31 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 int Hkv, int causal, float scale_log2) {
   constexpr uint32_t kTile = tile_bytes<D>();
   constexpr uint32_t kBlockBytes = kRows * 128;  // one 64-wide column block
-  const int n_qt = (Sq + kRows - 1) / kRows;
+  constexpr int kRowsT = kRows * WG;
+  constexpr int kStages = stages_of<D>();
+  const int n_qt = (Sq + kRowsT - 1) / kRowsT;
   const int per_tile = H * B;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile) * kRows;
+  const int q0 =
+      (n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile) * kRowsT;
   const int hb = static_cast<int>(blockIdx.x) % per_tile;
   const int h = hb % H, b = hb / H;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // with two warpgroups, their index through a shuffle, so that ptxas
+  // knows it warp-uniform and keeps the wgmma descriptors in uniform
+  // registers; with one, the plain warp index
+  const int wg = WG == 1 ? 0 : __shfl_sync(0xffffffffu, tid / kThreads, 0);
+  const int warp = WG == 1 ? tid >> 5 : (tid >> 5) & 3;
+  const int wq0 = q0 + kRows * wg;  // this warpgroup's first row
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;
-  const uint32_t k_s = base + kTile;                 // + stage * kTile
-  const uint32_t v_s = base + (1 + kStages) * kTile;  // + stage * kTile
-  const uint32_t bar = base + (1 + 2 * kStages) * kTile;  // Q; + 8 (1 + s)
+  const uint32_t q_s = base;                          // + wg * kTile
+  const uint32_t k_s = base + WG * kTile;             // + stage * kTile
+  const uint32_t v_s = base + (WG + kStages) * kTile;  // + stage * kTile
+  const uint32_t bar = base + (WG + 2 * kStages) * kTile;  // Q; + 8 (1 + s)
 
-  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
+  const int k_end = causal ? min(Sk, q0 + kRowsT) : Sk;
   const int n_kt = (k_end + kKeys - 1) / kKeys;
 
   const CUtensorMap* map_k = &tk;
@@ -281,10 +312,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar, kTile);
+    // a warpgroup's tile wholly past Sq is zero-filled (its rows are
+    // computed and never written)
+    mbar_expect_tx(bar, WG * kTile);
 #pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb)
-      tma_load_4d(q_s + cb * kBlockBytes, &tq, bar, cb * 64, h, q0, b);
+    for (int w = 0; w < WG; ++w)
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_load_4d(q_s + w * kTile + cb * kBlockBytes, &tq, bar, cb * 64, h,
+                    q0 + kRows * w, b);
     for (int t = 0; t < kStages && t < n_kt; ++t) load_kv(t, t);
   }
 
@@ -295,18 +331,20 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
   OnlineSoftmax sm;
   sm.init();
-  const int row0 = q0 + 16 * warp + (lane >> 2);  // + 8 for the second half
-  const int col0 = 2 * (lane & 3);                // + 8 j + e
+  const int row0 = wq0 + 16 * warp + (lane >> 2);  // + 8 for the second half
+  const int col0 = 2 * (lane & 3);                 // + 8 j + e
 
   mbar_wait(bar, 0);
   for (int t = 0; t < n_kt; ++t) {
     const int s = t % kStages;
     mbar_wait(bar + 8 * (1 + s), (t / kStages) & 1);
-    float sc[32];
-    scores<D>(sc, q_s, k_s + s * kTile);
-
     const int k0 = t * kKeys;
-    const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > q0);
+    // Every warpgroup runs every tile, even one wholly past its diagonal
+    // (masked: it leaves the softmax state as it was): a wgmma in a branch
+    // that ptxas cannot prove warpgroup-uniform is serialized.
+    float sc[32];
+    scores<D>(sc, q_s + wg * kTile, k_s + s * kTile);
+    const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > wq0);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
@@ -391,7 +429,7 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int D, int heads, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, int WG>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int Hkv, int causal, float scale,
            cudaStream_t stream) {
@@ -399,17 +437,197 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   cudaError_t err = encode(&tq, q, D, H, Sq, B);
   if (err == cudaSuccess) err = encode(&tk, k, D, Hkv, Sk, B);
   if (err == cudaSuccess) err = encode(&tv, v, D, Hkv, Sk, B);
-  if (err == cudaSuccess) err = repro::allow_smem(flash_tc_kernel<D>,
-                                                  smem_bytes<D>());
+  if (err == cudaSuccess)
+    err = repro::allow_smem(flash_tc_kernel<D, WG>, smem_bytes<D, WG>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (long long)((Sq + kRows - 1) / kRows) * H * B;
-  flash_tc_kernel<D><<<(unsigned)blocks, kThreads, smem_bytes<D>(),
-                       stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
-                                 B, Sq, Sk, H, Hkv, causal, scale * kLog2e);
+  const long long blocks =
+      (long long)((Sq + kRows * WG - 1) / (kRows * WG)) * H * B;
+  flash_tc_kernel<D, WG><<<(unsigned)blocks, kThreads * WG,
+                           smem_bytes<D, WG>(), stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, Sq, Sk, H, Hkv, causal,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_rows(int rows, const void* q, const void* k, const void* v,
+                void* out, int B, int Sq, int Sk, int H, int Hkv, int causal,
+                float scale, cudaStream_t stream) {
+  if (rows == 64)
+    return launch<D, 1>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
+                        stream);
+  if (rows == 128)
+    return launch<D, 2>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
+                        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace tcf
+
+// ------------------------------------------------ 3xTF32 variant (fp32)
+
+namespace tff {
+
+using repro::tc::cp_async16;
+using repro::tc::cp_async_commit;
+using repro::tc::cp_async_wait;
+using repro::tc::kLog2e;
+using repro::tc::OnlineSoftmax;
+using repro::tc::smem_u32;
+using repro::tf32::ld_qk;
+using repro::tf32::ld_v;
+
+// Keys of one K/V tile: 64, or 32 at D = 192 (two stages of 64 fp32 keys
+// and a Q tile would not fit the 227 KB).
+template <int D>
+__host__ __device__ constexpr int keys_of() {
+  return D == 192 ? 32 : 64;
+}
+
+// Q (16 WARPS rows) and two K stages at stride ld_qk(D), then two V
+// stages at stride ld_v(D), row-major fp32.
+template <int D, int WARPS>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (ld_qk(D) * (16 * WARPS + 2 * keys_of<D>()) +
+                          ld_v(D) * 2 * keys_of<D>());
+}
+
+// Grid as flash_tc_kernel's: heaviest query tile first.  Warp w owns query
+// rows q0 + 16 w .. q0 + 16 w + 15 of the block's 16 WARPS.
+template <int D, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int B, int Sq, int Sk, int H, int Hkv, int causal,
+                    float scale_log2) {
+  constexpr int kRowsT = 16 * WARPS, kKeysT = keys_of<D>();
+  constexpr int ld = ld_qk(D), ldv = ld_v(D);
+  constexpr int kThreadsT = 32 * WARPS, kChunks = D / 4;  // 16 B chunks
+  const int n_qt = (Sq + kRowsT - 1) / kRowsT;
+  const int per_tile = H * B;
+  const int q0 =
+      (n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile) * kRowsT;
+  const int hb = static_cast<int>(blockIdx.x) % per_tile;
+  const int h = hb % H, b = hb / H;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  extern __shared__ float4 smem_tf[];
+  float* q_s = reinterpret_cast<float*>(smem_tf);
+  float* k_s = q_s + kRowsT * ld;       // + stage * kKeysT * ld
+  float* v_s = k_s + 2 * kKeysT * ld;   // + stage * kKeysT * ldv
+
+  for (int i = tid; i < kRowsT * kChunks; i += kThreadsT) {
+    const int r = i / kChunks, col = (i % kChunks) * 4;
+    const int qi = q0 + r;
+    const bool ok = qi < Sq;
+    cp_async16(smem_u32(q_s + r * ld + col),
+               ok ? q + (((size_t)b * Sq + qi) * H + h) * D + col : q, ok);
+  }
+  auto load_kv = [&](int t, int s) {
+    for (int i = tid; i < kKeysT * kChunks; i += kThreadsT) {
+      const int r = i / kChunks, col = (i % kChunks) * 4;
+      const int kj = t * kKeysT + r;
+      const bool ok = kj < Sk;
+      const size_t off = ok ? (((size_t)b * Sk + kj) * Hkv + hk) * D + col : 0;
+      cp_async16(smem_u32(k_s + (s * kKeysT + r) * ld + col), k + off, ok);
+      cp_async16(smem_u32(v_s + (s * kKeysT + r) * ldv + col), v + off, ok);
+    }
+  };
+  const int k_end = causal ? min(Sk, q0 + kRowsT) : Sk;
+  const int n_kt = (k_end + kKeysT - 1) / kKeysT;
+  load_kv(0, 0);
+  cp_async_commit();  // Q rides with the first K/V tile
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  OnlineSoftmax sm;
+  sm.init();
+  const int wq0 = q0 + 16 * warp;         // this warp's first row
+  const int row0 = wq0 + (lane >> 2);     // + 8 for the second half
+  const int col0 = 2 * (lane & 3);        // + 8 j + e
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t & 1;
+    if (t + 1 < n_kt) {
+      load_kv(t + 1, s ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * kKeysT;
+    // warp-uniform: a key tile wholly past this warp's diagonal adds
+    // nothing
+    if (!causal || k0 <= wq0 + 15) {
+      float sc[kKeysT / 2];
+      repro::tf32::scores<D, kKeysT>(sc, q_s + 16 * warp * ld,
+                                     k_s + s * kKeysT * ld, lane);
+      const bool edge = k0 + kKeysT > Sk || (causal && k0 + kKeysT - 1 > wq0);
+#pragma unroll
+      for (int i = 0; i < kKeysT / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        float x = sc[i] * scale_log2;
+        if (edge && (key >= Sk || (causal && key > row))) x = -INFINITY;
+        sc[i] = x;
+      }
+      float corr[2];
+      sm.step(sc, corr);
+      repro::tf32::rescale(o, corr);
+      repro::tf32::accumulate_pv<D, kKeysT>(o, sc, v_s + s * kKeysT * ldv,
+                                            lane);
+    }
+    __syncthreads();  // every warp is done with stage s before its refill
+  }
+
+  sm.finish();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= Sq) continue;
+    const float inv = 1.f / sm.l[half];
+    float* dst = out + (((size_t)b * Sq + row) * H + h) * D + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+  }
+}
+
+template <int D, int WARPS>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int H, int Hkv, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D, WARPS>();
+  cudaError_t err = repro::allow_smem(flash_tf32x3_kernel<D, WARPS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = 16 * WARPS;
+  const long long blocks = (long long)((Sq + rows - 1) / rows) * H * B;
+  flash_tf32x3_kernel<D, WARPS><<<(unsigned)blocks, 32 * WARPS, smem,
+                                  stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), B, Sq, Sk, H,
+      Hkv, causal, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_rows(int rows, const void* q, const void* k, const void* v,
+                void* out, int B, int Sq, int Sk, int H, int Hkv, int causal,
+                float scale, cudaStream_t stream) {
+  if (rows == 64)
+    return launch<D, 4>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
+                        stream);
+  if (rows == 128)
+    return launch<D, 8>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
+                        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tff
 
 }  // namespace
 
@@ -431,21 +649,42 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core variant: bf16 only, D = 64, 128 or 192, every pointer
-// 16-byte aligned (TMA).  Returns cudaGetLastError() (or the encode failure).
+// The tensor-core variants.  bf16 (wgmma): D = 64, 128 or 192, every
+// pointer 16-byte aligned (TMA); fp32 (3xTF32): the same D, every pointer
+// 16-byte aligned (cp.async).  rows: the query rows of one block, 64 or
+// 128.  Returns cudaGetLastError() (or the encode failure).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* out, int B,
                                          int Sq, int Sk, int H, int Hkv,
                                          int D, int causal, float scale,
-                                         void* stream) {
+                                         int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return tcf::launch<64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale, s);
+    return tcf::launch_rows<64>(rows, q, k, v, out, B, Sq, Sk, H, Hkv, causal,
+                                scale, s);
   if (D == 128)
-    return tcf::launch<128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
-                            s);
+    return tcf::launch_rows<128>(rows, q, k, v, out, B, Sq, Sk, H, Hkv,
+                                 causal, scale, s);
   if (D == 192)
-    return tcf::launch<192>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, scale,
-                            s);
+    return tcf::launch_rows<192>(rows, q, k, v, out, B, Sq, Sk, H, Hkv,
+                                 causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k,
+                                             const void* v, void* out, int B,
+                                             int Sq, int Sk, int H, int Hkv,
+                                             int D, int causal, float scale,
+                                             int rows, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return tff::launch_rows<64>(rows, q, k, v, out, B, Sq, Sk, H, Hkv, causal,
+                                scale, s);
+  if (D == 128)
+    return tff::launch_rows<128>(rows, q, k, v, out, B, Sq, Sk, H, Hkv,
+                                 causal, scale, s);
+  if (D == 192)
+    return tff::launch_rows<192>(rows, q, k, v, out, B, Sq, Sk, H, Hkv,
+                                 causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,13 +37,22 @@
 //   (3) A combine kernel merges each row's partials, as the split-K
 //   combine of paged_attention.cu; a row with no partial (padding, or
 //   nothing visible) is written as exactly 0, never NaN.
-// * packed_prefill_launch -- every other call (fp32, and bf16 with any
-//   other D): the first version.  One block per (kv head, block of 16
-//   lanes) walks the segments that own one of its lanes, one after
-//   another, each only up to min(seg_ctx, furthest position + 1), with its
-//   products as fp32 FMAs from shared memory.
+// * packed_prefill_tf32x3_launch -- fp32 with D = 64 or 128 and G <= 64:
+//   the same planner, work items and combine kernel; only the partial
+//   kernel's products change.  Its 4 warps own 16 rows each of the 64-row
+//   tile; K/V rows are gathered through the page row by 16-byte cp.async
+//   into two buffers of row-major fp32 at a padded stride, and QK^T and PV
+//   run on mma.sync m16n8k8 TF32 with every operand split in two TF32
+//   numbers (3xTF32, tf32x3.cuh): fp32's accuracy at the TF32 rate.  A
+//   warp none of whose rows belongs to the item's segment skips it.
+// * packed_prefill_launch -- every other call (fp32 or bf16 with any other
+//   D): the first version.  One block per (kv head, block of 16 lanes)
+//   walks the segments that own one of its lanes, one after another, each
+//   only up to min(seg_ctx, furthest position + 1), with its products as
+//   fp32 FMAs from shared memory.
 #include "attn_tc.cuh"
 #include "common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -411,17 +420,161 @@ partial_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// The 3xTF32 partial kernel (fp32): partial_kernel's walk over the
+// (item, kv head) pairs with fp32 tiles and the products of tf32x3.cuh.
+// Q, then two K buffers of 64 rows at stride ld_qk(D), then two V buffers
+// at stride ld_v(D).
+template <int D>
+constexpr size_t tf32_smem_bytes() {
+  return sizeof(float) * kRows *
+         (3 * repro::tf32::ld_qk(D) + 2 * repro::tf32::ld_v(D));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+partial_tf32x3_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k_pages,
+                      const float* __restrict__ v_pages,
+                      const int* __restrict__ page_rows,
+                      const int* __restrict__ seg_ids,
+                      const int* __restrict__ positions,
+                      const int4* __restrict__ items,
+                      const int* __restrict__ count,
+                      float* __restrict__ acc_part,
+                      float2* __restrict__ ml_part, int C, int Hkv, int G,
+                      int page_size, int n_pages, int lanes, int n_lb,
+                      int max_ranges, int item_keys, float scale_log2) {
+  constexpr int ld = repro::tf32::ld_qk(D), ldv = repro::tf32::ld_v(D);
+  constexpr int kChunks = D / 4;  // 16-byte chunks of one row
+  const int H = Hkv * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ float4 smem_tf[];
+  float* q_s = reinterpret_cast<float*>(smem_tf);
+  float* k_s = q_s + kRows * ld;       // + buf * kKeys * ld
+  float* v_s = k_s + 2 * kKeys * ld;   // + buf * kKeys * ldv
+  const size_t slot_stride = (size_t)Hkv * D;
+  const size_t page_stride = (size_t)page_size * slot_stride;
+  const int n_work = *count * Hkv;
+
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int4 it = items[w / Hkv];
+    const int hk = w % Hkv, lb = it.x, s = it.y, r = it.z;
+    const int key_lo = r * item_keys;
+    const int key_hi = min(key_lo + item_keys, it.w);
+    const int* row_pages = page_rows + (size_t)s * n_pages;
+
+    bool live[2];
+    int pos[2], row[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      row[half] = 16 * warp + (lane >> 2) + 8 * half;
+      const int c = lb * lanes + row[half] / G;
+      live[half] = row[half] < lanes * G && c < C && seg_ids[c] == s;
+      pos[half] = live[half] ? positions[c] : -1;
+    }
+    const bool warp_live = __any_sync(0xffffffffu, live[0] || live[1]);
+
+    __syncthreads();  // the previous item's readers of Q and K/V are done
+    for (int i = tid; i < kRows * kChunks; i += kThreads) {
+      const int rr = i / kChunks, col = (i % kChunks) * 4;
+      const int c = lb * lanes + rr / G;
+      const bool ok = rr < lanes * G && c < C;
+      const float* src =
+          ok ? q + ((size_t)c * H + (size_t)hk * G + rr % G) * D + col : q;
+      cp_async16(smem_u32(q_s + rr * ld + col), src, ok);
+    }
+    auto load_kv = [&](int k0, int buf) {
+      for (int i = tid; i < kKeys * kChunks; i += kThreads) {
+        const int t = i / kChunks, col = (i % kChunks) * 4;
+        const int kp = k0 + t;
+        const bool ok = kp < key_hi;
+        const size_t off =
+            ok ? (size_t)row_pages[kp / page_size] * page_stride +
+                     (size_t)(kp % page_size) * slot_stride +
+                     (size_t)hk * D + col
+               : 0;
+        cp_async16(smem_u32(k_s + (buf * kKeys + t) * ld + col),
+                   k_pages + off, ok);
+        cp_async16(smem_u32(v_s + (buf * kKeys + t) * ldv + col),
+                   v_pages + off, ok);
+      }
+    };
+    load_kv(key_lo, 0);
+    cp_async_commit();
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    OnlineSoftmax sm;
+    sm.init();
+    const int col0 = 2 * (lane & 3);
+    const int n_tiles = (key_hi - key_lo + kKeys - 1) / kKeys;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t & 1;
+      if (t + 1 < n_tiles) {
+        load_kv(key_lo + (t + 1) * kKeys, buf ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (warp_live) {
+        float sc[32];
+        repro::tf32::scores<D, kKeys>(sc, q_s + 16 * warp * ld,
+                                      k_s + buf * kKeys * ld, lane);
+        const int k0 = key_lo + t * kKeys;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          const int half = (i >> 1) & 1;
+          sc[i] = key < key_hi && key <= pos[half] ? sc[i] * scale_log2
+                                                   : -INFINITY;
+        }
+        float corr[2];
+        sm.step(sc, corr);
+        repro::tf32::rescale(o, corr);
+        repro::tf32::accumulate_pv<D, kKeys>(o, sc, v_s + buf * kKeys * ldv,
+                                             lane);
+      }
+      __syncthreads();  // products on `buf` done before it is refilled
+    }
+
+    sm.finish();
+    const size_t sl = slot(hk, lb, r, n_lb, max_ranges);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!live[half]) continue;
+      const size_t at = sl * kRows + row[half];
+      float* dst = acc_part + at * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+      if ((lane & 3) == 0) ml_part[at] = make_float2(sm.m[half], sm.l[half]);
+    }
+  }
+}
+
 // One block per (lane, kv head): out = sum_r acc_r 2^(m_r - M) /
 // sum_r l_r 2^(m_r - M) over the ranges r that hold a visible key of the
 // lane; no such range (padding, nothing visible) -> exactly 0.
-template <int D>
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const float* __restrict__ acc_part,
                const float2* __restrict__ ml_part,
                const int* __restrict__ seg_ids,
                const int* __restrict__ positions,
                const int* __restrict__ seg_ctx,
-               __nv_bfloat16* __restrict__ out, int Hkv, int G,
+               T* __restrict__ out, int Hkv, int G,
                int page_size, int n_pages, int n_segs, int lanes, int n_lb,
                int max_ranges, int item_keys) {
   const int c = blockIdx.x, hk = blockIdx.y;
@@ -459,21 +612,20 @@ combine_kernel(const float* __restrict__ acc_part,
       res.z *= inv;
       res.w *= inv;
     }
-    const uint2 packed = make_uint2(pack_bf16(res.x, res.y),
-                                    pack_bf16(res.z, res.w));
-    *reinterpret_cast<uint2*>(
-        out + ((size_t)c * Hkv * G + (size_t)hk * G + g) * D + d4 * 4) =
-        packed;
+    store4(out + ((size_t)c * Hkv * G + (size_t)hk * G + g) * D + d4 * 4,
+           res);
   }
 }
 
-template <int D>
+// Planner, partial kernel (wgmma for bf16, 3xTF32 for fp32) and combine.
+template <int D, typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* page_rows, const void* seg_ids, const void* positions,
            const void* seg_ctx, void* out, void* items, void* count,
            void* acc_part, void* ml_part, int C, int Hkv, int G,
            int page_size, int n_segs, int n_pages, int lanes, int item_keys,
            int max_ranges, int grid, float scale, cudaStream_t stream) {
+  constexpr bool kFp32 = sizeof(T) == 4;
   const int n_lb = (C + lanes - 1) / lanes;
   const int* seg = static_cast<const int*>(seg_ids);
   const int* pos = static_cast<const int*>(positions);
@@ -482,26 +634,64 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
                                      static_cast<int*>(count), C, lanes, n_lb,
                                      n_segs, n_pages, page_size, item_keys);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = repro::allow_smem(partial_kernel<D>, smem_bytes<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  partial_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages),
-      static_cast<const int*>(page_rows), seg, pos,
-      static_cast<const int4*>(items), static_cast<const int*>(count),
-      static_cast<float*>(acc_part), static_cast<float2*>(ml_part), C, Hkv,
-      G, page_size, n_pages, lanes, n_lb, max_ranges, item_keys,
-      scale * kLog2e);
+  if constexpr (kFp32) {
+    constexpr size_t smem = tf32_smem_bytes<D>();
+    err = repro::allow_smem(partial_tf32x3_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    partial_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pages),
+        static_cast<const float*>(v_pages),
+        static_cast<const int*>(page_rows), seg, pos,
+        static_cast<const int4*>(items), static_cast<const int*>(count),
+        static_cast<float*>(acc_part), static_cast<float2*>(ml_part), C, Hkv,
+        G, page_size, n_pages, lanes, n_lb, max_ranges, item_keys,
+        scale * kLog2e);
+  } else {
+    constexpr size_t smem = smem_bytes<D>();
+    err = repro::allow_smem(partial_kernel<D>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    partial_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k_pages),
+        static_cast<const __nv_bfloat16*>(v_pages),
+        static_cast<const int*>(page_rows), seg, pos,
+        static_cast<const int4*>(items), static_cast<const int*>(count),
+        static_cast<float*>(acc_part), static_cast<float2*>(ml_part), C, Hkv,
+        G, page_size, n_pages, lanes, n_lb, max_ranges, item_keys,
+        scale * kLog2e);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  combine_kernel<D><<<dim3(C, Hkv), kThreads, 0, stream>>>(
+  combine_kernel<D, T><<<dim3(C, Hkv), kThreads, 0, stream>>>(
       static_cast<const float*>(acc_part),
       static_cast<const float2*>(ml_part), seg, pos, ctx,
-      static_cast<__nv_bfloat16*>(out), Hkv, G, page_size, n_pages, n_segs,
-      lanes, n_lb, max_ranges, item_keys);
+      static_cast<T*>(out), Hkv, G, page_size, n_pages, n_segs, lanes, n_lb,
+      max_ranges, item_keys);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k_pages, const void* v_pages,
+             const void* page_rows, const void* seg_ids,
+             const void* positions, const void* seg_ctx, void* out,
+             void* items, void* count, void* acc_part, void* ml_part, int C,
+             int Hkv, int G, int D, int page_size, int n_segs, int n_pages,
+             int lanes, int item_keys, int max_ranges, int grid, float scale,
+             cudaStream_t stream) {
+  if (lanes < 1 || lanes * G > kRows || item_keys < 1 || grid < 1 || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64)
+    return launch<64, T>(q, k_pages, v_pages, page_rows, seg_ids, positions,
+                         seg_ctx, out, items, count, acc_part, ml_part, C,
+                         Hkv, G, page_size, n_segs, n_pages, lanes, item_keys,
+                         max_ranges, grid, scale, stream);
+  if (D == 128)
+    return launch<128, T>(q, k_pages, v_pages, page_rows, seg_ids, positions,
+                          seg_ctx, out, items, count, acc_part, ml_part, C,
+                          Hkv, G, page_size, n_segs, n_pages, lanes,
+                          item_keys, max_ranges, grid, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tcp
@@ -530,33 +720,30 @@ extern "C" int packed_prefill_launch(const void* q, const void* k_pages,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core variant: bf16 only, D = 64 or 128, lanes * G <= 64 rows.
+// The tensor-core variants: bf16 (wgmma) and fp32 (3xTF32), D = 64 or
+// 128, lanes * G <= 64 rows, every pointer 16-byte aligned (cp.async).
 // Scratch from the caller: items (int4, at least n_lb * min(lanes, n_segs)
 // * max_ranges), count (one int), acc_part (Hkv * n_lb * max_ranges * 64 *
 // D floats), ml_part (Hkv * n_lb * max_ranges * 64 float2), where n_lb =
 // ceil(C / lanes) and max_ranges = ceil(n_pages * page_size / item_keys).
 // `grid` blocks walk the (item, kv head) pairs.  Returns
 // cudaGetLastError().
-extern "C" int packed_prefill_tc_launch(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* page_rows, const void* seg_ids, const void* positions,
-    const void* seg_ctx, void* out, void* items, void* count, void* acc_part,
-    void* ml_part, int C, int Hkv, int G, int D, int page_size, int n_segs,
-    int n_pages, int lanes, int item_keys, int max_ranges, int grid,
-    float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lanes < 1 || lanes * G > repro::tc::kRows || item_keys < 1 ||
-      grid < 1 || C < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 64)
-    return tcp::launch<64>(q, k_pages, v_pages, page_rows, seg_ids, positions,
-                           seg_ctx, out, items, count, acc_part, ml_part, C,
-                           Hkv, G, page_size, n_segs, n_pages, lanes,
-                           item_keys, max_ranges, grid, scale, s);
-  if (D == 128)
-    return tcp::launch<128>(q, k_pages, v_pages, page_rows, seg_ids,
-                            positions, seg_ctx, out, items, count, acc_part,
-                            ml_part, C, Hkv, G, page_size, n_segs, n_pages,
-                            lanes, item_keys, max_ranges, grid, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+#define REPRO_TC_LAUNCH(name, T)                                             \
+  extern "C" int name(                                                      \
+      const void* q, const void* k_pages, const void* v_pages,              \
+      const void* page_rows, const void* seg_ids, const void* positions,    \
+      const void* seg_ctx, void* out, void* items, void* count,             \
+      void* acc_part, void* ml_part, int C, int Hkv, int G, int D,          \
+      int page_size, int n_segs, int n_pages, int lanes, int item_keys,     \
+      int max_ranges, int grid, float scale, void* stream) {                \
+    return tcp::launch_d<T>(q, k_pages, v_pages, page_rows, seg_ids,        \
+                            positions, seg_ctx, out, items, count, acc_part, \
+                            ml_part, C, Hkv, G, D, page_size, n_segs,       \
+                            n_pages, lanes, item_keys, max_ranges, grid,    \
+                            scale, static_cast<cudaStream_t>(stream));      \
+  }
+
+REPRO_TC_LAUNCH(packed_prefill_tc_launch, __nv_bfloat16)
+REPRO_TC_LAUNCH(packed_prefill_tf32x3_launch, float)
+
+#undef REPRO_TC_LAUNCH

@@ -49,9 +49,11 @@
 //   round trips of a global merge, not the bytes, were most of a decode
 //   call's time: a two-launch merge through global memory measured 2.1 us
 //   slower on the device).
-// * "fma", fp32 (its 3e-5 tolerance is below what TF32 keeps) and bf16 at
-//   any other shape: the first version, fp32 FMAs from shared memory and a
-//   second combine kernel.
+// * "fma", fp32 (not yet redesigned, ROADMAP B.1: the 3xTF32 split of
+//   tf32x3.cuh keeps fp32's accuracy on the tensor cores, as the flash and
+//   packed kernels' fp32 variants do) and bf16 at any other shape: the
+//   first version, fp32 FMAs from shared memory and a second combine
+//   kernel.
 
 #include <cooperative_groups.h>
 

@@ -48,7 +48,8 @@
 //   cumsum is a warp scan.  mma.sync rather than wgmma: each warp's score
 //   tile feeds its own W x product in registers, and a 16-row warp tile
 //   follows the causal triangle at a fine grain.
-// * "fma", fp32 (its 2e-4 tolerance is below what TF32 keeps) and bf16 at
+// * "fma", fp32 (not yet redesigned, ROADMAP B.4: the 3xTF32 split of
+//   tf32x3.cuh would keep fp32's accuracy on the tensor cores) and bf16 at
 //   any other shape: the first version, everything in fp32 FMAs from shared
 //   memory, the Q x Q scores built in strips of kStrip query rows.
 

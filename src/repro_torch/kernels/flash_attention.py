@@ -18,23 +18,30 @@ Bound on H100: operations.  At the models' shapes (S = 1000–1024, D = 64)
 the causal product is about 4 * B * H * S^2 / 2 * D operations against a
 few MB of q, k, v and out.  At DeepSeek-V2's MLA prefill (B = 2, S = 1024,
 H = 128, D = 192) the two come close in bf16: 403 MB take 0.120 ms at
-3.35 TB/s, 1.03e11 operations 0.104 ms at 989 TFLOP/s.  Two variants,
+3.35 TB/s, 1.03e11 operations 0.104 ms at 989 TFLOP/s.  Three variants,
 chosen openly by :func:`kernel_variant` from the dtype and the head dim:
 
 * ``"wgmma"`` — bf16 with D in :data:`TC_HEAD_DIMS` (every config that
   reaches this kernel: TinyLlama and Zamba2 use 64, OLMoE, Qwen3 and
   Llama-3 128, DeepSeek-V2's MLA 192, nope 128 + rope 64 with V padded).
-  QK^T and PV on the tensor cores (wgmma), Q/K/V tiles by TMA into
-  a two-stage ring.  Needs 16-byte-aligned tensors (TMA).
-* ``"fma"`` — fp32 (its 3e-5 tolerance rules out TF32) and bf16 with any
-  other D: the first version, fp32 FMAs from shared memory.
+  QK^T and PV on the tensor cores (wgmma), Q/K/V tiles by TMA into a
+  ring of two stages (three at D = 192); one or two consumer warpgroups
+  a block, 64 query rows each (:func:`query_rows`).  Needs
+  16-byte-aligned tensors (TMA).
+* ``"tf32x3"`` — fp32 with D in :data:`TC_HEAD_DIMS`.  The same tiling on
+  ``mma.sync`` with each operand split in two TF32 numbers (3xTF32:
+  fp32's accuracy, within the 3e-5 tolerance, at the TF32 rate), K/V by
+  ``cp.async``.  Needs 16-byte-aligned tensors.
+* ``"fma"`` — fp32 and bf16 with any other D: the first version, fp32
+  FMAs from shared memory.
 
-Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
-CPU tensor runs :func:`flash_attention_plain`, and so does a ``meta``
-tensor (the dry run's abstract device, where nothing runs).  There is no
-fallback.  DTensor inputs run on their local shards through ``local_map``
-(:mod:`.sharded`), sharded at most over batch and heads (with GQA's kv
-heads whole where they do not split as far as the q heads).
+Dispatch is by device: a CUDA tensor launches one of the variants (or
+raises); a CPU tensor runs :func:`flash_attention_plain`, and so does a
+``meta`` tensor (the dry run's abstract device, where nothing runs).
+There is no fallback.  DTensor inputs run on their local shards through
+``local_map`` (:mod:`.sharded`), sharded at most over batch and heads
+(with GQA's kv heads whole where they do not split as far as the q
+heads).
 
 Gradients: the kernels are forward-only, as the TPU kernel is (the JAX
 trainer differentiates the jnp mirror ``layers.blockwise_attention``).
@@ -64,23 +71,34 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, out; B, Sq, Sk, H, Hkv, D, causal; scale; dtype; stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# the same without dtype (bf16 only)
+# the tensor-core variants: no dtype (one entry point each), rows instead
 _TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-    [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_TC_SYMBOLS = {"wgmma": "flash_attention_tc_launch",
+               "tf32x3": "flash_attention_tf32x3_launch"}
 
 
 def kernel_variant(dtype, head_dim: int, device) -> str:
     """The version that serves a call: ``"plain"`` on the CPU; on a CUDA
-    device ``"wgmma"`` for bf16 with D in :data:`TC_HEAD_DIMS`, else
-    ``"fma"``."""
+    device ``"wgmma"`` for bf16 and ``"tf32x3"`` for fp32 with D in
+    :data:`TC_HEAD_DIMS`, else ``"fma"``."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {device}")
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
-        return "wgmma"
+    if head_dim in TC_HEAD_DIMS:
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "fma"
+
+
+def query_rows(head_dim: int) -> int:
+    """Query rows of one block of a tensor-core variant: 64 (one bf16
+    warpgroup, or 4 fp32 warps) at D = 64, 128 (two warpgroups, or 8
+    warps, sharing each K/V stage) at D = 128 and 192, in either dtype:
+    the faster tile of each D in ``chip_smoke.py`` phase 7, which times
+    both by patching this function (PERF.md section 6)."""
+    return 64 if head_dim == 64 else 128
 
 
 def _check_causal(q, k, causal: bool) -> None:
@@ -128,7 +146,8 @@ def _check(q, k, v, causal):
 
 def flash_attention_cuda(q, k, v, *, causal: bool):
     """Launch the variant of ``csrc/flash_attention.cu`` that
-    :func:`kernel_variant` names, on the current stream."""
+    :func:`kernel_variant` names, on the current stream (a tensor-core
+    variant with the tile :func:`query_rows` names)."""
     _check(q, k, v, causal)
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -136,13 +155,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool):
     if b == 0 or sq == 0:
         return out
     variant = kernel_variant(q.dtype, d, q.device)
-    if variant == "wgmma":
+    if variant in _TC_SYMBOLS:
         if any(t.data_ptr() % 16 for t in (q, k, v, out)):
-            raise ValueError("flash_attention: the bf16 tensor-core kernel "
-                             "needs 16-byte-aligned tensors (TMA)")
-        fn = build.function("flash_attention", "flash_attention_tc_launch",
+            raise ValueError(f"flash_attention: the {variant} kernel needs "
+                             f"16-byte-aligned tensors (TMA, cp.async)")
+        fn = build.function("flash_attention", _TC_SYMBOLS[variant],
                             _TC_ARGTYPES)
-        extra = ()
+        extra = (query_rows(d),)
     else:
         fn = build.function("flash_attention", "flash_attention_launch",
                             _ARGTYPES)

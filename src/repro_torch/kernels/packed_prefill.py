@@ -11,8 +11,9 @@ write padding lanes (segment -1) and lanes with nothing visible as exactly
 
 Bound on H100: bytes, at about 0.002 ms for the engine's chunk; what sets
 the time there is latency and the schedule (the longest chain of key tiles
-one block walks, and how many SMs have work).  Two variants, chosen openly
-by :func:`kernel_variant` from the dtype, the head dim and the group:
+one block walks, and how many SMs have work).  Three variants, chosen
+openly by :func:`kernel_variant` from the dtype, the head dim and the
+group:
 
 * ``"wgmma"`` — bf16 with D in :data:`TC_HEAD_DIMS` and G = H / Hkv <= 64.
   A device-side planner splits the chunk into work items (lane block,
@@ -23,8 +24,14 @@ by :func:`kernel_variant` from the dtype, the head dim and the group:
   that this wrapper allocates; a combine kernel merges them per row.  The
   grid and the scratch are sized from the shapes alone
   (:func:`work_bounds`), so the engine gains no device-to-host copy.
-* ``"fma"`` — fp32 and any other D: the first version, one block per
-  (kv head, 16 lanes) walking its segments one after another, fp32 FMAs.
+* ``"tf32x3"`` — fp32 at the shapes ``"wgmma"`` takes: the same planner,
+  work items, scratch and combine kernel; the partial kernel gathers fp32
+  K/V rows by ``cp.async`` and runs QK^T and PV on ``mma.sync`` with each
+  operand split in two TF32 numbers (3xTF32: fp32's accuracy, within the
+  3e-5 tolerance, at the TF32 rate).
+* ``"fma"`` — fp32 and bf16 at any other D or G: the first version, one
+  block per (kv head, 16 lanes) walking its segments one after another,
+  fp32 FMAs.
 
 Contract shared by all versions: ``seg_ctx[s]`` is at least one past the
 largest position of segment ``s``'s lanes (the engine passes exactly
@@ -48,24 +55,24 @@ TC_HEAD_DIMS = (64, 128)
 TC_ROWS = 64             # query rows of one warpgroup tile
 KEYS_PER_ITEM = 256      # key range of one work item, at most ...
 MAX_RANGES = 8           # ... until a segment of n_pages would need more
-TC_BLOCKS_PER_SM = 4     # partial-kernel blocks resident on one SM
+TC_BLOCKS_PER_SM = 4     # partial-kernel blocks an SM (bf16: all resident)
 
 launches = build.LaunchCounter()
 
 
 def kernel_variant(dtype, head_dim: int, group: int, device) -> str:
     """The version that serves a call: ``"plain"`` on the CPU; on a CUDA
-    device ``"wgmma"`` for bf16 with D in :data:`TC_HEAD_DIMS` and G query
-    heads per kv head at most one 64-row tile, else ``"fma"``."""
+    device, with D in :data:`TC_HEAD_DIMS` and G query heads per kv head
+    at most one 64-row tile, ``"wgmma"`` for bf16 and ``"tf32x3"`` for
+    fp32; else ``"fma"``."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"packed_prefill_attention: no kernel for device "
                          f"{device}")
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS and \
-            1 <= group <= TC_ROWS:
-        return "wgmma"
+    if head_dim in TC_HEAD_DIMS and 1 <= group <= TC_ROWS:
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "fma"
 
 
@@ -89,7 +96,7 @@ def item_keys(n_pages: int, page_size: int) -> int:
 
 def work_bounds(c: int, n_segs: int, n_pages: int, page_size: int,
                 group: int, n_kv_heads: int) -> dict:
-    """Sizes of the tensor-core variant, from the shapes alone: lanes per
+    """Sizes of the tensor-core variants, from the shapes alone: lanes per
     block, lane blocks, keys per item, key ranges a row can have, the most
     work items the planner can emit (every lane block holding
     min(lanes, segments) segments of full length), and the partial
@@ -114,6 +121,8 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
 # stream
 _TC_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + \
     [ctypes.c_float, ctypes.c_void_p]
+_TC_SYMBOLS = {"wgmma": "packed_prefill_tc_launch",
+               "tf32x3": "packed_prefill_tf32x3_launch"}
 
 
 def packed_prefill_plain(q, k_pages, v_pages, page_rows, seg_ids, positions,
@@ -196,11 +205,11 @@ def packed_prefill_cuda(q, k_pages, v_pages, page_rows, seg_ids, positions,
     variant = kernel_variant(q.dtype, d, g, q.device)
     ptrs = [t.data_ptr() for t in (q, k_pages, v_pages, page_rows, seg_ids,
                                    positions, seg_ctx, out)]
-    if variant == "wgmma":
+    if variant in _TC_SYMBOLS:
         if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, out)):
-            raise ValueError("packed_prefill_attention: the bf16 tensor-core "
-                             "kernel needs 16-byte-aligned tensors "
-                             "(cp.async)")
+            raise ValueError(f"packed_prefill_attention: the {variant} "
+                             f"kernel needs 16-byte-aligned tensors "
+                             f"(cp.async)")
         wb = work_bounds(c, n_segs, n_pages, page_size, g, hkv)
         slots = hkv * wb["n_lb"] * wb["max_ranges"] * TC_ROWS
         # scratch: the work items (int4 each) and their count; the fp32
@@ -209,7 +218,7 @@ def packed_prefill_cuda(q, k_pages, v_pages, page_rows, seg_ids, positions,
                            device=q.device)
         floats = torch.empty((slots * (d + 2),), dtype=torch.float32,
                              device=q.device)
-        fn = build.function("packed_prefill", "packed_prefill_tc_launch",
+        fn = build.function("packed_prefill", _TC_SYMBOLS[variant],
                             _TC_ARGTYPES)
         args = ptrs + [ints.data_ptr(), ints[wb["item_cap"] * 4:].data_ptr(),
                        floats.data_ptr(), floats[slots * d:].data_ptr()] + [

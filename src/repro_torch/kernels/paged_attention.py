@@ -24,9 +24,11 @@ element.  Two variants, chosen openly by :func:`kernel_variant`:
   :data:`TC_MAX_SPLITS`, run as one thread-block cluster and merge in its
   distributed shared memory in the same launch, so the call needs no
   scratch.  Needs 16-byte-aligned tensors.
-* ``"fma"`` — fp32 (its 3e-5 tolerance rules out TF32) and bf16 at any
-  other shape: the first version, fp32 FMAs from shared memory and a
-  second combine kernel over one scratch allocation of partials.
+* ``"fma"`` — fp32 (not yet redesigned, ROADMAP B.1: the 3xTF32 split
+  that flash and packed prefill use for fp32 would keep its accuracy on
+  the tensor cores) and bf16 at any other shape: the first version, fp32
+  FMAs from shared memory and a second combine kernel over one scratch
+  allocation of partials.
 
 The wrapper enters no device context when the tensor's device is current
 and checks only metadata (no device sync); the fma variant's scratch is

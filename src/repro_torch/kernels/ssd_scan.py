@@ -22,8 +22,10 @@ Two variants, chosen openly by :func:`kernel_variant`:
   bf16 before they multiply x, the carried state fp32 in registers and
   bf16 only as an operand; x, B and C in bf16 shared memory by 16-byte
   ``cp.async``, two blocks an SM.  Needs 16-byte-aligned x, B, C and y.
-* ``"fma"`` — fp32 (its 2e-4 tolerance rules out TF32) and bf16 at any
-  other shape: the first version, fp32 FMAs from shared memory.
+* ``"fma"`` — fp32 (not yet redesigned, ROADMAP B.4: the 3xTF32 split
+  that flash and packed prefill use for fp32 would keep its accuracy on
+  the tensor cores) and bf16 at any other shape: the first version, fp32
+  FMAs from shared memory.
 
 Dispatch is by device: a CUDA tensor launches one of the two (or raises); a
 CPU tensor runs :func:`ssd_scan_plain`, and so does a ``meta`` tensor (the

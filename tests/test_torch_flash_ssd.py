@@ -19,6 +19,7 @@ from repro.kernels.ssd_scan import ssd_scan as jssd_scan
 from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tss
 from repro_torch.models import layers
@@ -226,6 +227,20 @@ def test_ssd_wrapper_validates_inputs(case):
         x = x.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         tss._check(x, dt, a, b, c, chunk, None)
+
+
+@pytest.mark.parametrize("d,want", [(64, "tf32x3"), (128, "tf32x3"),
+                                    (192, "tf32x3"), (32, "fma"),
+                                    (96, "fma")])
+def test_fp32_variants_flash_tf32x3_paged_and_ssd_fma(d, want):
+    """fp32 on a card: flash takes the 3xTF32 variant at its tensor-core
+    head dims and the FMA one elsewhere; paged decode and the SSD scan
+    keep ``fma`` for fp32 (not yet redesigned)."""
+    assert tfa.kernel_variant(torch.float32, d, "cuda") == want
+    if d in (64, 128):
+        assert tpa.kernel_variant(torch.float32, d, 8, "cuda") == "fma"
+        assert tss.kernel_variant(torch.float32, d, 128, 128,
+                                  "cuda") == "fma"
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])

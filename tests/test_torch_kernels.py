@@ -236,20 +236,43 @@ def test_launch_counter_counts_and_resets():
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_variant_by_dtype_head_dim_device(dtype, d, device):
-    """The route is chosen openly from (dtype, D, device): the tensor-core
-    variant for bf16 at D = 64 and 128 on a card, the FMA variant for fp32
-    and every other D, the plain version on the CPU."""
-    if device == "cpu":
-        want = "plain"
-    elif dtype == torch.bfloat16 and d in (64, 128):
-        want = "wgmma"
-    else:
-        want = "fma"
-    assert tfa.kernel_variant(dtype, d, device) == want
-    assert tpp.kernel_variant(dtype, d, 8, device) == want
+    """The route is chosen openly from (dtype, D, device): on a card the
+    tensor-core variants at flash's D 64, 128 and 192 and packed's D 64
+    and 128 (``wgmma`` for bf16, ``tf32x3`` for fp32), the FMA variant at
+    every other D, the plain version on the CPU."""
+    def want(tc_dims):
+        if device == "cpu":
+            return "plain"
+        if d in tc_dims:
+            return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        return "fma"
+    assert tfa.kernel_variant(dtype, d, device) == want((64, 128, 192))
+    assert tpp.kernel_variant(dtype, d, 8, device) == want((64, 128))
+
+
+@pytest.mark.parametrize("dtype,d,rows", [
+    (torch.bfloat16, 64, 64), (torch.bfloat16, 128, 128),
+    (torch.bfloat16, 192, 128), (torch.float32, 64, 64),
+    (torch.float32, 128, 128), (torch.float32, 192, 128)])
+def test_flash_query_rows_by_head_dim(dtype, d, rows):
+    """The tensor-core variants' tile is a function of the shape: 64 query
+    rows a block at D = 64, two warpgroups (bf16) or 8 warps (fp32) on 128
+    rows at D = 128 and 192 (DeepSeek-V2's MLA prefill), in either
+    dtype's tensor-core variant."""
+    assert tfa.kernel_variant(dtype, d, "cuda") in ("wgmma", "tf32x3")
+    assert tfa.query_rows(d) == rows
+
+
+def test_packed_one_segment_fp32_grid_fills_the_card():
+    """Phase 4's one-segment chunk (C 256, G 8, Hkv 4, 128 pages of 8):
+    the planner's grid is at least one block an SM, where the ``fma``
+    variant launched Hkv x C / 16 = 64 blocks."""
+    wb = tpp.work_bounds(256, 1, 128, 8, 8, 4)
+    assert tpp.kernel_variant(torch.float32, 64, 8, "cuda") == "tf32x3"
+    assert wb["grid"] >= tpp.N_SMS > 4 * 256 // 16
 
 
 def test_kernel_variant_packed_group_and_unknown_device():
@@ -257,6 +280,8 @@ def test_kernel_variant_packed_group_and_unknown_device():
     with no kernel raises."""
     assert tpp.kernel_variant(torch.bfloat16, 64, 64, "cuda") == "wgmma"
     assert tpp.kernel_variant(torch.bfloat16, 64, 65, "cuda") == "fma"
+    assert tpp.kernel_variant(torch.float32, 128, 64, "cuda") == "tf32x3"
+    assert tpp.kernel_variant(torch.float32, 128, 65, "cuda") == "fma"
     for fn in (lambda: tfa.kernel_variant(torch.bfloat16, 64, "meta"),
                lambda: tpp.kernel_variant(torch.bfloat16, 64, 8, "meta")):
         with pytest.raises(ValueError, match="no kernel"):

@@ -412,7 +412,7 @@ FLASH_FAMILIES = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,variant", [("float32", "fma"),
+@pytest.mark.parametrize("dtype,variant", [("float32", "tf32x3"),
                                            ("bfloat16", "wgmma")])
 @pytest.mark.parametrize("shape", FLASH_FAMILIES)
 def test_flash_at_the_whisper_and_qwen2_vl_shapes(cuda_device, shape, dtype,
@@ -464,7 +464,7 @@ FLASH_192 = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,variant", [("float32", "fma"),
+@pytest.mark.parametrize("dtype,variant", [("float32", "tf32x3"),
                                            ("bfloat16", "wgmma")])
 @pytest.mark.parametrize("pad_v", [False, True])
 @pytest.mark.parametrize("shape", FLASH_192)
@@ -573,10 +573,12 @@ def test_packed_tc_lane_past_its_pages_is_zero(cuda_device):
 
 @pytest.mark.cuda
 def test_variants_follow_dtype_and_head_dim(cuda_device):
-    """bf16 at D = 64 launches the tensor-core variants, fp32 and bf16 at
-    D = 16 the FMA ones, as ``kernel_variant`` says."""
-    for dtype, d, want in (("bfloat16", 64, "wgmma"), ("float32", 64, "fma"),
-                           ("bfloat16", 16, "fma")):
+    """bf16 at D = 64 launches the wgmma variants, fp32 there the 3xTF32
+    ones, fp32 and bf16 at D = 16 the FMA ones, as ``kernel_variant``
+    says."""
+    for dtype, d, want in (("bfloat16", 64, "wgmma"),
+                           ("float32", 64, "tf32x3"),
+                           ("float32", 16, "fma"), ("bfloat16", 16, "fma")):
         t = _on(_flash_inputs((1, 70, 70, 4, 2, d), seed=21), dtype,
                 cuda_device)
         assert tfa.kernel_variant(t[0].dtype, d, t[0].device) == want
@@ -590,6 +592,106 @@ def test_variants_follow_dtype_and_head_dim(cuda_device):
         ops.packed_prefill_attention(*p)
         assert tpp.launches.of(want) == before + 1
     torch.cuda.synchronize()
+
+
+# ------------------------------- 3xTF32 variants and the 128-row tiles
+
+
+def _launch_variant(module, want, fn, *args, **kw):
+    """``fn(*args, **kw)`` as numpy, after checking that it launched
+    ``module``'s ``want`` variant once."""
+    before = module.launches.of(want)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert module.launches.of(want) == before + 1, f"not the {want} variant"
+    return _np(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("shape", TC_FLASH_CAUSAL[::3] + [
+    (1, 1, 4, 4, 192), (2, 40, 4, 2, 192), (1, 1000, 8, 8, 192)])
+def test_flash_tf32x3_causal_matches_plain(cuda_device, shape, rows,
+                                           monkeypatch):
+    """fp32 at D 64, 128 and 192 on the 3xTF32 variant, both tiles (4
+    warps on 64 query rows, 8 on 128), within fp32's 3e-5."""
+    monkeypatch.setattr(tfa, "query_rows", lambda d: rows)
+    b, s, h, hkv, d = shape
+    t = _on(_flash_inputs((b, s, s, h, hkv, d), seed=s + d + hkv),
+            "float32", cuda_device)
+    out = _launch_variant(tfa, "tf32x3", tfa.flash_attention_cuda, *t,
+                          causal=True)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(
+        out, _np(tfa.flash_attention_plain(*t, causal=True)),
+        **TOLS["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("shape", TC_FLASH_CROSS + [(2, 70, 300, 4, 2, 192)])
+def test_flash_tf32x3_cross_lengths_match_plain(cuda_device, shape, rows,
+                                                 monkeypatch):
+    monkeypatch.setattr(tfa, "query_rows", lambda d: rows)
+    t = _on(_flash_inputs(shape, seed=17), "float32", cuda_device)
+    out = _launch_variant(tfa, "tf32x3", tfa.flash_attention_cuda, *t,
+                          causal=False)
+    np.testing.assert_allclose(
+        out, _np(tfa.flash_attention_plain(*t, causal=False)),
+        **TOLS["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 4, 4, 64), (2, 40, 4, 2, 64),
+                                   (1, 130, 8, 1, 128), (2, 200, 4, 2, 192),
+                                   (1, 1000, 8, 8, 192),
+                                   (1, 2048, 8, 1, 128)])
+def test_flash_wgmma_two_warpgroups_match_plain(cuda_device, shape,
+                                                monkeypatch):
+    """bf16 on the 128-row tile (two consumer warpgroups sharing each K/V
+    stage) at every tensor-core D, including a last tile whose second
+    warpgroup has no row."""
+    monkeypatch.setattr(tfa, "query_rows", lambda d: 128)
+    b, s, h, hkv, d = shape
+    t = _on(_flash_inputs((b, s, s, h, hkv, d), seed=s + d),
+            "bfloat16", cuda_device)
+    for causal in (True, False):
+        out = _launch_variant(tfa, "wgmma", tfa.flash_attention_cuda, *t,
+                              causal=causal)
+        assert np.all(np.isfinite(out))
+        np.testing.assert_allclose(
+            out, _np(tfa.flash_attention_plain(*t, causal=causal)),
+            **TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(TC_PACKED_CASES))
+def test_packed_tf32x3_matches_plain(cuda_device, case, d):
+    spans, c, h, hkv, page, npg, share = TC_PACKED_CASES[case]
+    arrays = _packed_chunk(spans, c, h, hkv, d, page, npg, seed=19,
+                           share=share)
+    t = _on(arrays, "float32", cuda_device)
+    out = _launch_variant(tpp, "tf32x3", tpp.packed_prefill_cuda, *t)
+    assert np.all(np.isfinite(out))
+    assert np.all(out[arrays[4] < 0] == 0.0), "padding lanes leaked output"
+    np.testing.assert_allclose(out, _np(tpp.packed_prefill_plain(*t)),
+                               **TOLS["float32"])
+
+
+@pytest.mark.cuda
+def test_packed_tf32x3_one_segment_matches_plain(cuda_device):
+    """The packed chunk of one prompt (C 256 lanes at positions 512-767,
+    H 32, Hkv 4, D 64, 128 pages of 8) in fp32: the 3xTF32 variant within
+    3e-5, its grid at least one block an SM."""
+    arrays = _packed_chunk([(0, 0, 256, 512)], 256, 32, 4, 64, 8, 128,
+                           seed=24)
+    assert tpp.work_bounds(256, 1, 128, 8, 8, 4)["grid"] >= tpp.N_SMS
+    t = _on(arrays, "float32", cuda_device)
+    out = _launch_variant(tpp, "tf32x3", tpp.packed_prefill_cuda, *t)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(out, _np(tpp.packed_prefill_plain(*t)),
+                               **TOLS["float32"])
 
 
 # ------------------------------------- paged decode and SSD, mma variants
@@ -752,7 +854,7 @@ def test_paged_and_ssd_variants_follow_dtype_and_shape(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,want", [("float32", 64, "fma"),
+@pytest.mark.parametrize("dtype,d,want", [("float32", 64, "tf32x3"),
                                           ("bfloat16", 64, "wgmma"),
                                           ("bfloat16", 128, "wgmma")])
 def test_packed_kernel_at_the_verify_layout(cuda_device, dtype, d, want):
