@@ -124,6 +124,7 @@ from .config import ServingConfig
 from .faults import build_fault_line
 from .policies import as_admission_policy, as_scheduler_policy
 from .sampling import as_sampling_policy
+from .spans import SpanRecorder
 
 
 @dataclass
@@ -171,6 +172,8 @@ class Request:
     # so TTFT and inter-token latencies are measurable without polling
     t_submit: float = 0.0
     out_times: List[float] = field(default_factory=list)
+    # first admission's stamp (pages reserved); None until then
+    t_admit: Optional[float] = None
     # set on every generated token and on completion (stream wakeups)
     _progress: threading.Event = field(default_factory=threading.Event)
     # filled at submit time (client thread): prefix-cache hit
@@ -380,10 +383,16 @@ class _ShardEngine:
         self.n_slo_cancelled = 0        # TTFT SLO expiries (subset of
         #                                 n_cancelled)
         self.n_itl_violations = 0       # observed inter-token SLO misses
-        # host seconds spent moving pages device→host (gather + copy) and
-        # host→device (copy + scatter + sync)
-        self.swap_out_s = 0.0
-        self.swap_in_s = 0.0
+        # the serving loop's spans (serving/spans.py): always-on totals,
+        # a ring while a capture is open
+        self.spans = SpanRecorder()
+        self._capture = None
+        # prompt tokens run through a prefill chunk (no padding, no hits)
+        self.prefill_tokens_computed = 0
+        # occupied rows of every decode call, and their summed context
+        # lengths (the keys the paged kernel reads a layer)
+        self.decode_rows = 0
+        self.decode_kv_tokens = 0
         # ITL gap accounting: intervals spanning a preemption park or a
         # migration stall, excluded from itl() and the SLO observation
         self.n_gap_intervals = 0
@@ -476,23 +485,25 @@ class _ShardEngine:
     def submit(self, req: Request) -> Request:
         """Client-thread path: optimistic prefix lookup happens HERE,
         concurrently with the engine and janitor threads."""
-        self._check_open()
-        self._validate(req)
-        req.t_submit = time.perf_counter()
-        self._stamp_deadline(req)
-        pages, n_tok = self.prefix_cache.lookup(req.prompt)
-        self._attach_hit(req, pages, n_tok)
-        with self._wlock:
-            # re-check under the queue lock: stop() sets the flag BEFORE its
-            # drain takes this lock, so a push that wins the lock after the
-            # drain must see the flag — no request can strand in a dead
-            # queue with its hit pages pinned
-            stopped = self._stop.is_set()
-            if not stopped:
-                self.admission.push(self._waiting, req)
-        if stopped:
-            self._drop_hits([req])
-        return req
+        with self.spans.span("submit", req=req.req_id):
+            self._check_open()
+            self._validate(req)
+            req.t_submit = time.perf_counter()
+            self._stamp_deadline(req)
+            with self.spans.span("prefix_cache.lookup"):
+                pages, n_tok = self.prefix_cache.lookup(req.prompt)
+            self._attach_hit(req, pages, n_tok)
+            with self._wlock:
+                # re-check under the queue lock: stop() sets the flag
+                # BEFORE its drain takes this lock, so a push that wins the
+                # lock after the drain must see the flag — no request can
+                # strand in a dead queue with its hit pages pinned
+                stopped = self._stop.is_set()
+                if not stopped:
+                    self.admission.push(self._waiting, req)
+            if stopped:
+                self._drop_hits([req])
+            return req
 
     def _drop_hits(self, reqs: Sequence[Request]):
         for req in reqs:
@@ -507,24 +518,27 @@ class _ShardEngine:
         under one SMR guard scope — one reservation lifecycle for the whole
         admission wave instead of one per request — and the waiting queue is
         extended under a single lock acquisition."""
-        self._check_open()
-        for req in reqs:
-            self._validate(req)
-        now = time.perf_counter()
-        for req in reqs:
-            req.t_submit = now
-            self._stamp_deadline(req)
-        hits = self.prefix_cache.lookup_many([r.prompt for r in reqs])
-        for req, (pages, n_tok) in zip(reqs, hits):
-            self._attach_hit(req, pages, n_tok)
-        with self._wlock:
-            stopped = self._stop.is_set()  # see submit(): drain-vs-push race
-            if not stopped:
-                for req in reqs:
-                    self.admission.push(self._waiting, req)
-        if stopped:
-            self._drop_hits(reqs)
-        return reqs
+        with self.spans.span("submit"):
+            self._check_open()
+            for req in reqs:
+                self._validate(req)
+            now = time.perf_counter()
+            for req in reqs:
+                req.t_submit = now
+                self._stamp_deadline(req)
+            with self.spans.span("prefix_cache.lookup"):
+                hits = self.prefix_cache.lookup_many([r.prompt for r in reqs])
+            for req, (pages, n_tok) in zip(reqs, hits):
+                self._attach_hit(req, pages, n_tok)
+            with self._wlock:
+                # see submit(): drain-vs-push race
+                stopped = self._stop.is_set()
+                if not stopped:
+                    for req in reqs:
+                        self.admission.push(self._waiting, req)
+            if stopped:
+                self._drop_hits(reqs)
+            return reqs
 
     def waiting_count(self) -> int:
         with self._wlock:
@@ -590,7 +604,16 @@ class _ShardEngine:
 
     # ------------------------------------------------------------- device fns
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the engine's device.  On the card the copy
+        goes through pinned memory and does not block: a copy from
+        pageable memory ends in a stream sync, which would wait for the
+        work already queued (a packed step's chunk, before its riders'
+        operands).  The caching host allocator keeps the pinned block
+        until the copy is done."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _layers(self, x, angles, write, attend):
         """Run every decoder block over x (B, S, d).  ``write(i, k, v)``
@@ -741,9 +764,11 @@ class _ShardEngine:
         sampi as from :meth:`_operands`, spos (N,) the absolute position
         each row samples AT, the counter-PRNG replay coordinate) → host
         (tokens, logprobs).  The one device→host sync of a step."""
-        toks, lps = ops.sample_tokens(logits, sampf[:, 0], sampi[:, 0],
-                                      sampf[:, 1], sampi[:, 1], spos)
-        return toks.cpu().numpy(), lps.cpu().numpy()
+        with self.spans.span("sample.launch"):
+            toks, lps = ops.sample_tokens(logits, sampf[:, 0], sampi[:, 0],
+                                          sampf[:, 1], sampi[:, 1], spos)
+        with self.spans.span("sample.wait"):
+            return toks.cpu().numpy(), lps.cpu().numpy()
 
     def _draft_propose(self, tok_buf, ctx, sampf, sampi):
         """Draft model: propose spec_k tokens per batch row, as a PURE
@@ -922,12 +947,14 @@ class _ShardEngine:
         p_dists = kref.filtered_dist_ref(
             logits, sampf[lane_row, 0], sampi[lane_row, 0],
             sampf[lane_row, 1]).reshape(b, lanes_per, -1)
-        toks_o, n_emit, lps = ops.spec_verify_rows(
-            p_dists, q_dists, d_toks, nd, sampi[:, 1], ctx)
-        n_emit = torch.where(torch.as_tensor(occ, device=self.device),
-                             n_emit, torch.zeros_like(n_emit))
-        return (toks_o.cpu().numpy(), n_emit.cpu().numpy(),
-                lps.cpu().numpy())
+        with self.spans.span("sample.launch"):
+            toks_o, n_emit, lps = ops.spec_verify_rows(
+                p_dists, q_dists, d_toks, nd, sampi[:, 1], ctx)
+            n_emit = torch.where(torch.as_tensor(occ, device=self.device),
+                                 n_emit, torch.zeros_like(n_emit))
+        with self.spans.span("sample.wait"):
+            return (toks_o.cpu().numpy(), n_emit.cpu().numpy(),
+                    lps.cpu().numpy())
 
     # ------------------------------------------------------------- engine
     def _fault_dispatch(self) -> None:
@@ -1074,6 +1101,10 @@ class _ShardEngine:
         for j, pg in enumerate(pages):
             page_ids[j] = pg.page_id
         seq = _Seq(req, pages, owned_from, page_ids)
+        if req.t_admit is None:
+            req.t_admit = time.perf_counter()
+            self.spans.record("request.queue", req.t_submit, req.t_admit,
+                              req.req_id)
         if resume or req._carried is not None:
             if resume:
                 self._restore_swapped(req, seq)
@@ -1195,9 +1226,8 @@ class _ShardEngine:
         written = len(seq.tokens) - 1
         n_spill = -(-written // self.page_size)
         if n_spill > 0:
-            t0 = time.perf_counter()
-            k_np, v_np = self._pages_to_host(seq.page_row[:n_spill])
-            self.swap_out_s += time.perf_counter() - t0
+            with self.spans.span("swap.out"):
+                k_np, v_np = self._pages_to_host(seq.page_row[:n_spill])
             try:
                 # the arena counts whole pages; _swap_tokens the written
                 # positions among them
@@ -1240,11 +1270,10 @@ class _ShardEngine:
             except SwapChecksumError:
                 seq.filled = start       # recompute everything past the hit
             else:
-                t0 = time.perf_counter()
-                self._pages_from_host(
-                    seq.page_row[from_page:from_page + k_np.shape[0]],
-                    k_np, v_np)
-                self.swap_in_s += time.perf_counter() - t0
+                with self.spans.span("swap.in"):
+                    self._pages_from_host(
+                        seq.page_row[from_page:from_page + k_np.shape[0]],
+                        k_np, v_np)
                 seq.filled = req._swap_tokens
         self._release_swap(req)
         self.n_resumed += 1
@@ -1284,6 +1313,9 @@ class _ShardEngine:
         req._gap_pending = False
         req.out_tokens.append(tok)
         req.out_times.append(now)
+        if len(req.out_times) == 1:
+            self.spans.record("request.prefill", req.t_admit, now,
+                              req.req_id)
         if req.sampling is not None and req.sampling.logprobs:
             req.out_logprobs.append(float(lp))
         # host-side stop-sequence match against the emitted suffix (the
@@ -1308,17 +1340,19 @@ class _ShardEngine:
         end = min(seq.filled + grant, n_prompt)
         logits = None
         while seq.filled < end:
-            n_valid = min(chunk, end - seq.filled)
-            buf = np.zeros((chunk,), np.int64)
-            buf[:n_valid] = req.prompt[seq.filled:seq.filled + n_valid]
-            self._fault_dispatch()
-            logits = self._paged_prefill(
-                buf, seq.page_row, seq.filled, n_valid,
-                emit=seq.filled + n_valid == n_prompt
-                and self._prefill_emits(seq))
+            with self.spans.span("chunk"):
+                n_valid = min(chunk, end - seq.filled)
+                buf = np.zeros((chunk,), np.int64)
+                buf[:n_valid] = req.prompt[seq.filled:seq.filled + n_valid]
+                self._fault_dispatch()
+                logits = self._paged_prefill(
+                    buf, seq.page_row, seq.filled, n_valid,
+                    emit=seq.filled + n_valid == n_prompt
+                    and self._prefill_emits(seq))
             seq.filled += n_valid
             self.prefill_chunks += 1
             self.prefill_tokens_wasted += chunk - n_valid
+            self.prefill_tokens_computed += n_valid
         if seq.filled == n_prompt:
             # final chunk: its last-position logits ARE the first token,
             # sampled at absolute position len(prompt); intermediate chunks
@@ -1365,7 +1399,8 @@ class _ShardEngine:
                 req.status = "active"
                 self._active.append(seq)
             return
-        self._emit(seq, tok, lp)
+        with self.spans.span("emit"):
+            self._emit(seq, tok, lp)
         seq.new_tokens = 1
         if seq.new_tokens >= req.max_new_tokens \
                 or req.cancelled.is_set() or req._stop_hit:
@@ -1410,61 +1445,66 @@ class _ShardEngine:
         rider_toks = None
         first = True
         while queue:
-            toks = np.zeros((chunk,), np.int64)
-            segs = np.full((chunk,), -1, np.int32)
-            poss = np.zeros((chunk,), np.int32)
-            # per-lane write targets (padding lanes write nothing)
-            upd = np.zeros((chunk,), np.int64)
-            slot = np.zeros((chunk,), np.int64)
-            rows = np.zeros((n_segs, self.max_pages), np.int32)
-            ctxs = np.zeros((n_segs,), np.int32)
-            emit = np.full((n_segs,), chunk, np.int32)  # not finishing
-            # the absolute position each emitting segment samples AT (the
-            # counter-PRNG coordinate)
-            spos = np.zeros((n_segs,), np.int64)
-            members = []
-            lane = 0
-            while queue and lane < chunk and len(members) < n_segs:
-                seq, grant = queue.pop(0)
-                take = min(grant, chunk - lane)
-                si = len(members)
-                pos = np.arange(seq.filled, seq.filled + take)
-                toks[lane:lane + take] = \
-                    seq.req.prompt[seq.filled:seq.filled + take]
-                segs[lane:lane + take] = si
-                poss[lane:lane + take] = pos
-                upd[lane:lane + take] = seq.page_row[pos // pgsz]
-                slot[lane:lane + take] = pos % pgsz
-                rows[si] = seq.page_row
-                ctxs[si] = seq.filled + take
-                spos[si] = seq.filled + take
-                if seq.filled + take == len(seq.req.prompt):
-                    emit[si] = lane + take - 1
-                members.append((seq, take))
-                lane += take
-                if take < grant:
-                    # chunk overflow: the remainder LEADS the next chunk.
-                    # A mid-chunk split point need not be page-aligned —
-                    # alignment only matters at STEP end (prefix-cache
-                    # resume), and the full grant lands within this plan.
-                    queue.insert(0, (seq, grant - take))
-            self.prefill_chunks += 1
-            self.packed_chunks += 1
-            self.packed_segments += len(members)
-            self.prefill_tokens_wasted += chunk - lane
-            self._fault_dispatch()
-            # power-of-2 segment bucket: pay for the segments actually
-            # present, not max_batch (seg ids are compact, so a prefix
-            # slice of the per-segment operands is sufficient)
-            n_b = min(n_segs, 1 << max(0, len(members) - 1).bit_length())
-            wr = np.flatnonzero(segs >= 0)
-            logits = self._paged_prefill_packed(
-                self._to_dev(toks), self._to_dev(segs), self._to_dev(poss),
-                self._to_dev(rows[:n_b]), self._to_dev(ctxs[:n_b]),
-                self._to_dev(np.clip(emit[:n_b], 0, chunk - 1)
-                             .astype(np.int64)),
-                self._to_dev(wr), self._to_dev(upd[wr]),
-                self._to_dev(slot[wr]))[:len(members)]
+            with self.spans.span("chunk"):
+                toks = np.zeros((chunk,), np.int64)
+                segs = np.full((chunk,), -1, np.int32)
+                poss = np.zeros((chunk,), np.int32)
+                # per-lane write targets (padding lanes write nothing)
+                upd = np.zeros((chunk,), np.int64)
+                slot = np.zeros((chunk,), np.int64)
+                rows = np.zeros((n_segs, self.max_pages), np.int32)
+                ctxs = np.zeros((n_segs,), np.int32)
+                emit = np.full((n_segs,), chunk, np.int32)  # not finishing
+                # the absolute position each emitting segment samples AT
+                # (the counter-PRNG coordinate)
+                spos = np.zeros((n_segs,), np.int64)
+                members = []
+                lane = 0
+                while queue and lane < chunk and len(members) < n_segs:
+                    seq, grant = queue.pop(0)
+                    take = min(grant, chunk - lane)
+                    si = len(members)
+                    pos = np.arange(seq.filled, seq.filled + take)
+                    toks[lane:lane + take] = \
+                        seq.req.prompt[seq.filled:seq.filled + take]
+                    segs[lane:lane + take] = si
+                    poss[lane:lane + take] = pos
+                    upd[lane:lane + take] = seq.page_row[pos // pgsz]
+                    slot[lane:lane + take] = pos % pgsz
+                    rows[si] = seq.page_row
+                    ctxs[si] = seq.filled + take
+                    spos[si] = seq.filled + take
+                    if seq.filled + take == len(seq.req.prompt):
+                        emit[si] = lane + take - 1
+                    members.append((seq, take))
+                    lane += take
+                    if take < grant:
+                        # chunk overflow: the remainder LEADS the next
+                        # chunk.  A mid-chunk split point need not be
+                        # page-aligned — alignment only matters at STEP end
+                        # (prefix-cache resume), and the full grant lands
+                        # within this plan.
+                        queue.insert(0, (seq, grant - take))
+                self.prefill_chunks += 1
+                self.packed_chunks += 1
+                self.packed_segments += len(members)
+                self.prefill_tokens_wasted += chunk - lane
+                self.prefill_tokens_computed += lane
+                self._fault_dispatch()
+                # power-of-2 segment bucket: pay for the segments actually
+                # present, not max_batch (seg ids are compact, so a prefix
+                # slice of the per-segment operands is sufficient)
+                n_b = min(n_segs,
+                          1 << max(0, len(members) - 1).bit_length())
+                wr = np.flatnonzero(segs >= 0)
+                logits = self._paged_prefill_packed(
+                    self._to_dev(toks), self._to_dev(segs),
+                    self._to_dev(poss),
+                    self._to_dev(rows[:n_b]), self._to_dev(ctxs[:n_b]),
+                    self._to_dev(np.clip(emit[:n_b], 0, chunk - 1)
+                                 .astype(np.int64)),
+                    self._to_dev(wr), self._to_dev(upd[wr]),
+                    self._to_dev(slot[wr]))[:len(members)]
             seqs = [seq for seq, _ in members]
             spos = spos[:len(members)]
             n_riders = len(riders) if first else 0
@@ -1501,25 +1541,28 @@ class _ShardEngine:
         (logits (max_batch, V), ctx (max_batch,) host: the absolute
         position each row samples AT — ctx already counts the incoming
         token, so the sampled one sits at index ctx)."""
-        b = self.max_batch
-        bt = np.zeros((b, self.max_pages), np.int32)
-        ctx = np.ones((b,), np.int32)
-        toks = np.zeros((b,), np.int64)
-        occ = np.zeros((b,), bool)
-        for i, seq in enumerate(batch_seqs):
-            bt[i, :] = seq.page_row
-            ctx[i] = len(seq.tokens)
-            toks[i] = seq.tokens[-1]
-            occ[i] = True
-        n = len(batch_seqs)
-        pos = ctx[:n] - 1
-        wr_page = bt[np.arange(n), pos // self.page_size].astype(np.int64)
-        logits = self._paged_decode_step(
-            self._to_dev(bt), self._to_dev(ctx), self._to_dev(toks),
-            self._to_dev(occ), self._to_dev(np.arange(n)),
-            self._to_dev(wr_page),
-            self._to_dev((pos % self.page_size).astype(np.int64)))
-        return logits, ctx
+        with self.spans.span("decode.launch"):
+            b = self.max_batch
+            bt = np.zeros((b, self.max_pages), np.int32)
+            ctx = np.ones((b,), np.int32)
+            toks = np.zeros((b,), np.int64)
+            occ = np.zeros((b,), bool)
+            for i, seq in enumerate(batch_seqs):
+                bt[i, :] = seq.page_row
+                ctx[i] = len(seq.tokens)
+                toks[i] = seq.tokens[-1]
+                occ[i] = True
+            n = len(batch_seqs)
+            pos = ctx[:n] - 1
+            self.decode_rows += n
+            self.decode_kv_tokens += int(ctx[:n].sum())
+            wr_page = bt[np.arange(n), pos // self.page_size].astype(np.int64)
+            logits = self._paged_decode_step(
+                self._to_dev(bt), self._to_dev(ctx), self._to_dev(toks),
+                self._to_dev(occ), self._to_dev(np.arange(n)),
+                self._to_dev(wr_page),
+                self._to_dev((pos % self.page_size).astype(np.int64)))
+            return logits, ctx
 
     def _decode_batch(self, batch_seqs):
         """The dedicated decode step for ``batch_seqs`` (padded to
@@ -1578,19 +1621,20 @@ class _ShardEngine:
             x_last, d_toks, ctx, nd, occ, rows, sampf, sampi, q_dists)
         self.n_spec_rounds += 1
         done = []
-        for i, seq in enumerate(batch):
-            req = seq.req
-            self.n_draft_proposed += int(nd[i])
-            self.n_draft_accepted += int(n_np[i]) - 1
-            for j in range(int(n_np[i])):
+        with self.spans.span("emit"):
+            for i, seq in enumerate(batch):
+                req = seq.req
+                self.n_draft_proposed += int(nd[i])
+                self.n_draft_accepted += int(n_np[i]) - 1
+                for j in range(int(n_np[i])):
+                    if seq.new_tokens >= req.max_new_tokens \
+                            or req.cancelled.is_set() or req._stop_hit:
+                        break
+                    self._emit(seq, int(toks_np[i, j]), float(lps_np[i, j]))
+                    seq.new_tokens += 1
                 if seq.new_tokens >= req.max_new_tokens \
                         or req.cancelled.is_set() or req._stop_hit:
-                    break
-                self._emit(seq, int(toks_np[i, j]), float(lps_np[i, j]))
-                seq.new_tokens += 1
-            if seq.new_tokens >= req.max_new_tokens \
-                    or req.cancelled.is_set() or req._stop_hit:
-                done.append(seq)
+                    done.append(seq)
         for seq in done:
             self._active.remove(seq)
             self._finish(seq, "cancelled" if seq.req.cancelled.is_set()
@@ -1603,26 +1647,30 @@ class _ShardEngine:
             self.pool.unpin(pg)
 
     def _finish(self, seq: _Seq, status: str = "done"):
-        if seq.req.done.is_set():
-            # the watchdog already failed this handle out (unstealable
-            # crash path: status/counters stamped, ``cancelled`` set so
-            # we reap it here) — just give the pages back
-            self._release_seq(seq)
-            return
-        # cache this sequence's page-aligned prefix (cancelled sequences are
-        # not worth caching — their generation was cut short), then release
-        # ownership
-        if status == "done":
-            self.prefix_cache.insert(seq.tokens, seq.pages)
-            self.n_completed += 1
-        elif status == "cancelled":
-            self.n_cancelled += 1
-        else:
-            self.n_failed += 1
-        self._release_seq(seq)
-        seq.req.status = status
-        seq.req._progress.set()
-        seq.req.done.set()
+        with self.spans.span("finish"):
+            if seq.req.done.is_set():
+                # the watchdog already failed this handle out (unstealable
+                # crash path: status/counters stamped, ``cancelled`` set so
+                # we reap it here) — just give the pages back
+                with self.spans.span("pool.release"):
+                    self._release_seq(seq)
+                return
+            # cache this sequence's page-aligned prefix (cancelled
+            # sequences are not worth caching — their generation was cut
+            # short), then release ownership
+            if status == "done":
+                with self.spans.span("prefix_cache.insert"):
+                    self.prefix_cache.insert(seq.tokens, seq.pages)
+                self.n_completed += 1
+            elif status == "cancelled":
+                self.n_cancelled += 1
+            else:
+                self.n_failed += 1
+            with self.spans.span("pool.release"):
+                self._release_seq(seq)
+            seq.req.status = status
+            seq.req._progress.set()
+            seq.req.done.set()
 
     def warm_swap(self) -> None:
         """Run the device↔host page movers once, so the FIRST preemption
@@ -1691,15 +1739,27 @@ class _ShardEngine:
                               sampf, sampi, q_dists)
 
     def step(self) -> bool:
-        """One engine iteration; returns False when idle."""
+        """One engine iteration; returns False when idle.  An open
+        :meth:`ServingSession.profile` capture starts and stops here,
+        between steps."""
         with self._step_lock, torch.inference_mode():
-            return self._step_locked()
+            if self._capture is not None:
+                self._capture = self._capture.service()
+            if not self._active and not self._prefilling and \
+                    not self.waiting_count():
+                return False
+            # the step span is named by the step's kind once it is known;
+            # a step that finds no work leaves it unnamed (not recorded)
+            with self.spans.span(None, step=self.steps) as sp:
+                return self._step_locked(sp)
 
-    def _step_locked(self) -> bool:
-        self._sweep_deadlines()
-        self._admit()
+    def _step_locked(self, sp) -> bool:
+        with self.spans.span("admit"):
+            self._sweep_deadlines()
+            self._admit()
         if not self._active and not self._prefilling:
             return False
+        sp.name = "step.decode"
         # drop cancelled prefilling sequences before spending budget on
         # them — their reserved pages (and hit pins) go straight back
         for seq in [s for s in self._prefilling
@@ -1715,6 +1775,8 @@ class _ShardEngine:
             plan = self.scheduler.plan(
                 list(self._prefilling), self.config.prefill_chunk_tokens,
                 self.page_size)
+            if any(grant > 0 for _, grant in plan):
+                sp.name = "step.chunk"
             if getattr(self.scheduler, "packs", False):
                 # packed path: the WHOLE plan rides one fixed-shape chunk,
                 # and the step's decode batch rides it too (fused step) —
@@ -1737,6 +1799,8 @@ class _ShardEngine:
             if self.spec_k:
                 # speculative mode replaces the dedicated decode step
                 # entirely: one draft-propose + one verify per round
+                if sp.name != "step.chunk":
+                    sp.name = "step.spec"
                 self._spec_round()
             else:
                 batch_seqs = list(self._active)
@@ -1744,12 +1808,14 @@ class _ShardEngine:
         if decoded is not None:
             next_toks, next_lps = decoded
             done = []
-            for i, seq in enumerate(batch_seqs):
-                self._emit(seq, int(next_toks[i]), float(next_lps[i]))
-                seq.new_tokens += 1
-                if seq.new_tokens >= seq.req.max_new_tokens \
-                        or seq.req.cancelled.is_set() or seq.req._stop_hit:
-                    done.append(seq)
+            with self.spans.span("emit"):
+                for i, seq in enumerate(batch_seqs):
+                    self._emit(seq, int(next_toks[i]), float(next_lps[i]))
+                    seq.new_tokens += 1
+                    if seq.new_tokens >= seq.req.max_new_tokens \
+                            or seq.req.cancelled.is_set() \
+                            or seq.req._stop_hit:
+                        done.append(seq)
             for seq in done:
                 self._active.remove(seq)
                 self._finish(seq, "cancelled" if seq.req.cancelled.is_set()
@@ -1795,7 +1861,8 @@ class _ShardEngine:
                 if self.fault_line is not None:
                     self.fault_line.before_step(self)
                 if not self.step():
-                    time.sleep(sleep_s)
+                    with self.spans.span("engine.idle"):
+                        time.sleep(sleep_s)
         except BaseException as exc:  # noqa: BLE001 — the crash guard
             self._crash(exc)
         finally:
@@ -1841,6 +1908,9 @@ class _ShardEngine:
             # after the join: anything a fault still holds (reader guard,
             # exhaustion pages) comes back before the drain accounts pages
             self.fault_line.release(self)
+        cap, self._capture = self._capture, None
+        if cap is not None:
+            cap.fail(RuntimeError("the engine stopped during profile()"))
         if drain:
             self._drain()
 
@@ -1862,7 +1932,19 @@ class _ShardEngine:
             self.prefix_cache.clear()
             self.smr.flush()
 
+    def open_capture(self, cap) -> None:
+        """Hand a :class:`~.spans.Capture` to the engine thread, which
+        starts it at its next step."""
+        if self._thread is None or not self._thread.is_alive():
+            raise RuntimeError(f"shard {self.shard_id}'s engine thread is "
+                               f"not running; profile() needs it")
+        with self._step_lock:
+            if self._capture is not None:
+                raise RuntimeError("a profile() capture is already open")
+            self._capture = cap
+
     def stats(self):
+        spans = self.spans.totals()
         return {
             "shard": self.shard_id,
             "pool": self.pool.stats(),
@@ -1888,8 +1970,10 @@ class _ShardEngine:
             "spec_rounds": self.n_spec_rounds,
             "swap": (self.swap_arena.stats()
                      if self.swap_arena is not None else None),
-            "swap_out_s": self.swap_out_s,
-            "swap_in_s": self.swap_in_s,
+            # host seconds moving pages device→host (gather + copy) and
+            # host→device (copy + scatter + sync)
+            "swap_out_s": spans.get("swap.out", (0, 0.0))[1],
+            "swap_in_s": spans.get("swap.in", (0, 0.0))[1],
             "prefill_chunks": self.prefill_chunks,
             "prefill_tokens_wasted": self.prefill_tokens_wasted,
             "packed_chunks": self.packed_chunks,
@@ -1906,6 +1990,11 @@ class _ShardEngine:
             "degraded_steps": self.degraded_steps,
             "migrated_in": self.n_migrated_in,
             "migrated_out": self.n_migrated_out,
+            "prefill_tokens_computed": self.prefill_tokens_computed,
+            "decode_rows": self.decode_rows,
+            "decode_kv_tokens": self.decode_kv_tokens,
+            # {span name: (count, seconds)} (serving/spans.py)
+            "spans": spans,
         }
 
 

@@ -28,12 +28,16 @@ shard — cross-request prefix hits survive sharding.
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 from ..runtime.prefix_cache import _prefix_key
 from .config import ServingConfig
 from .engine import Request, _ShardEngine
+from .spans import Capture
+from .watchdog import SessionWatchdog
 
 __all__ = ["PrefixRouter", "ShardedEngine", "RequestHandle",
            "ServingSession", "serve"]
@@ -209,13 +213,46 @@ class RequestHandle:
     __iter__ = tokens
 
 
+class _Watchdog(SessionWatchdog):
+    """The session watchdog, whose heartbeat checks can be held off
+    (:meth:`held`) across a pause of the whole process."""
+
+    def __init__(self, engine, config):
+        super().__init__(engine, config)
+        self._held = 0
+        self._hold_lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def held(self):
+        """Hold heartbeat checks off inside the block, which pauses the
+        engine loops from outside them: ``torch.profiler``'s start, stop
+        and event read keep the GIL for seconds on a busy card, and
+        reading the events beside the engines starves them of it.  No
+        shard is behind the others then.  On leaving, each shard's
+        heartbeat clock starts anew."""
+        with self._hold_lock:
+            self._held += 1
+        try:
+            yield
+        finally:
+            with self._hold_lock:
+                self._held -= 1
+                if not self._held:
+                    now = time.perf_counter()
+                    self._last_change = [now] * len(self.engine.shards)
+
+    def _heartbeat_check(self, now: float) -> None:
+        with self._hold_lock:
+            if not self._held:
+                super()._heartbeat_check(now)
+
+
 class ShardedEngine:
     """N independent shard engines + a router + a session watchdog (the
     janitor's pressure sweep, plus heartbeats / degradation / live
     migration — DESIGN.md §14)."""
 
     def __init__(self, model, params, config: ServingConfig, device=None):
-        from .watchdog import SessionWatchdog  # late: session ↔ watchdog
         self.config = config
         # "shared" SMR mode: one scheme instance spans every shard (the
         # pools disambiguate frees per PageNode owner); "per_shard" (the
@@ -232,7 +269,7 @@ class ShardedEngine:
         # while degraded, restored on recovery
         self._degraded: set = set()
         self._dlock = threading.Lock()
-        self.watchdog = SessionWatchdog(self, config)
+        self.watchdog = _Watchdog(self, config)
         self._started = False
 
     # ------------------------------------------------------------ lifecycle
@@ -446,16 +483,9 @@ class ServingSession:
             "cancelled": sum(s["cancelled"] for s in shards),
             "failed": sum(s["failed"] for s in shards),
             "pool_free": sum(s["pool"]["free"] for s in shards),
-            "pool_alloc": sum(s["pool"]["alloc"] for s in shards),
-            "pool_awaiting_reclaim": sum(s["pool"]["awaiting_reclaim"]
-                                         for s in shards),
             "prefix_hits": sum(s["prefix_cache"]["hits"] for s in shards),
-            "prefix_misses": sum(s["prefix_cache"]["misses"]
-                                 for s in shards),
             "prefix_entries": sum(s["prefix_cache"]["entries"]
                                   for s in shards),
-            "smr_retired": sum(s["smr"]["retired"] for s in shards),
-            "smr_reclaimed": sum(s["smr"]["reclaimed"] for s in shards),
             "prefill_chunks": sum(s["prefill_chunks"] for s in shards),
             "prefill_tokens_wasted": sum(s["prefill_tokens_wasted"]
                                          for s in shards),
@@ -466,7 +496,6 @@ class ServingSession:
             # fault-tolerance counters (DESIGN.md §14): migrations counts
             # completed handoffs (in == out when no handoff is mid-flight)
             "migrations": sum(s["migrated_out"] for s in shards),
-            "migrations_in": sum(s["migrated_in"] for s in shards),
             "heartbeat_misses": sum(s["heartbeat_misses"] for s in shards),
             "degraded_steps": sum(s["degraded_steps"] for s in shards),
             "failed_requests": sum(s["failed"] for s in shards),
@@ -491,6 +520,16 @@ class ServingSession:
             "swap_bytes_used": sum(s["swap"]["bytes_used"] for s in shards
                                    if s["swap"] is not None),
         }
+        # the serving loop's counters and span totals (serving/spans.py)
+        for key in ("prefill_tokens_computed", "decode_rows",
+                    "decode_kv_tokens"):
+            totals[key] = sum(s[key] for s in shards)
+        for s in shards:
+            for name, (n, sec) in s["spans"].items():
+                totals[f"span_n.{name}"] = totals.get(f"span_n.{name}",
+                                                      0) + n
+                totals[f"span_s.{name}"] = totals.get(f"span_s.{name}",
+                                                      0.0) + sec
         # chunk-weighted mean across shards (NOT a mean of per-shard means)
         totals["packed_segments_per_chunk"] = (
             totals["packed_segments"] / totals["packed_chunks"]
@@ -499,14 +538,6 @@ class ServingSession:
         totals["accept_rate"] = (
             totals["draft_accepted"] / totals["draft_proposed"]
             if totals["draft_proposed"] else 0.0)
-        if self.config.shard_smr == "shared":
-            # one scheme instance spans every shard: its counters (and the
-            # scheme-global awaiting_reclaim each pool reports) would be
-            # summed num_shards times — count them once instead
-            totals["smr_retired"] = shards[0]["smr"]["retired"]
-            totals["smr_reclaimed"] = shards[0]["smr"]["reclaimed"]
-            totals["pool_awaiting_reclaim"] = \
-                shards[0]["pool"]["awaiting_reclaim"]
         with self._lock:
             submitted = self._submitted
         return {
@@ -518,6 +549,59 @@ class ServingSession:
             "shards": shards,
             "totals": totals,
         }
+
+
+    # ------------------------------------------------------------ profile
+    def profile(self, seconds: float, path) -> dict:
+        """Capture ``seconds`` of serving: the device's kernels and the
+        CUDA runtime calls (``torch.profiler``; on the CPU, every
+        thread's operations) with the program's spans, on the host's
+        ``perf_counter`` clock, written as one Chrome trace to ``path``.
+
+        The calling thread starts and stops the profiler.  Shard 0's
+        engine thread opens the capture between steps, under its step
+        lock, and brackets it with two anchors, launches stamped on the
+        host clock; the offset from the profiler's clock is read from
+        them.  The profiler's start and stop keep the GIL for seconds on
+        a busy card, pausing every thread of the process, the engines
+        too (``stop_s``; ``beats_in_stop`` counts shard 0's loop turns
+        meanwhile), and reading its events beside the engines slows
+        them: the watchdog's heartbeat checks are held across the
+        profiler's start and from its stop to the summary, while request
+        deadlines and SLO clocks run on.
+
+        Returns a summary: the device's busy and idle share between the
+        anchors, idle device time by the innermost span open on that
+        engine thread (``idle_by_span``; ``(no span)`` where none), each
+        engine span's self time (``self_by_span``), both anchors'
+        offsets and their difference (``drift_ns``), the spans in the
+        trace; on the card, the share of the engine thread's kernel
+        launches made inside a step span and its runtime calls that wait
+        for the device by span (``syncs_by_span``); and the load: decode
+        calls, ``decode_rows``, ``decode_kv_tokens`` and
+        ``prefill_tokens_computed`` over the capture.  Raises
+        ``RuntimeError`` while another profiler records, or when the
+        engine thread is not running."""
+        held = self.engine.watchdog.held
+        cap = Capture(self.engine.shards, seconds)
+        with held():
+            cap.begin()
+        closed, out = False, None
+        try:
+            self.engine.shards[0].open_capture(cap)
+            # the engine closes the capture at its first step after
+            # ``seconds`` (a step takes well under a second)
+            closed = cap.closed.wait(seconds + 300.0)
+        finally:
+            with held():
+                cap.end()
+                if closed and cap.error is None:
+                    out = cap.reduce(path)
+        if not closed:
+            raise TimeoutError("the engine thread did not end the capture")
+        if cap.error is not None:
+            raise cap.error
+        return out
 
 
 def serve(model, params, config: Optional[ServingConfig] = None, *,

@@ -130,6 +130,9 @@ def test_crash_guard_fails_requests_and_pool_is_clean(models):
         with pytest.raises(RuntimeError, match="InjectedFault"):
             h.result()
     assert shard.crashed
+    # a handle is failed out before the crash drain empties the prefix
+    # cache: wait for the engine loop to end its drain
+    assert shard._run_done.wait(timeout=60)
     assert shard.pool.free_count() == CONFIG["num_pages"]
     session.close()
 
