@@ -28,6 +28,14 @@ Phases, in order; each prints one line and any failure exits non-zero:
    dead lanes sit between segments, one row unoccupied, two rows whose
    dead lanes lie past their page run; fp32 (``tf32x3``) and bf16
    (``wgmma``); dead lanes must be exactly 0; times as phase 4;
+4c. the decoder block's three fused kernels (``add_rms_norm``,
+   ``qk_norm_rope_write``, ``silu_mul``) against their plain versions at
+   Qwen3-32B's widths (5120, 64 / 8 heads, D 128, FFN 25600) and the
+   engine's three layouts: the decode step's 32 rows, the packed chunk's
+   512 lanes, the spec verify's 160 (32 rows x 5), each with padding rows
+   or lanes, fp32 and bf16; padding must leave every page byte as it was;
+   kernel, profiler, plain and bound times (no single PyTorch call
+   computes any of the three, so no library time);
 5. serving TinyLlama-1.1B at full width in fp32 (seeded random weights)
    under the ``chunked`` and ``packed`` schedulers, holding the greedy
    tokens against the model's contiguous-cache decode;
@@ -36,7 +44,11 @@ Phases, in order; each prints one line and any failure exits non-zero:
    packed launch must be the tensor-core variant, 22 (one a layer) per
    packed chunk, and every paged launch the ``mma`` variant, 22 per decode
    step and 22 per packed chunk that carries decode riders (their
-   attention), the two printed apart;
+   attention), the two printed apart; every decoder-block pass through
+   the fused kernels (``stats()``'s ``fused_blocks``, none eager), and
+   one decode call on the live engine launching ``add_rms_norm`` 45
+   times (two a layer and the final norm), ``qk_norm_rope_write`` and
+   ``silu_mul`` 22 times each;
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
    as Zamba2 and Hkv = 4 as TinyLlama, D = 64), at DeepSeek-V2's MLA
@@ -241,9 +253,11 @@ Phases, in order; each prints one line and any failure exits non-zero:
    the packed ``wgmma`` row's also 17a's and 18a-18b's prefill chunks;
    the flash ``wgmma`` row's those of phases 10, 14b, 15b, 16c and the
    bf16 runs of 16d and 17d; the SSD row's, of either variant, those of
-   phases 10, 16b and 17d; a row for each other variant of flash and
-   packed, ``flash_attention_tf32x3`` with the ``tf32x3`` launches of
-   phases 14a, 15a, 16b, 16d, 17b and 17d, ``flash_attention_fma`` with
+   phases 10, 16b and 17d; the three fused kernels' rows (4c's bf16
+   decode layout) phase 6's launches; a row for each other variant of
+   flash and packed, ``flash_attention_tf32x3`` with the ``tf32x3``
+   launches of phases 14a, 15a, 16b, 16d, 17b and 17d,
+   ``flash_attention_fma`` with
    18c's, ``packed_prefill_attention_tf32x3`` with those of phase 12's
    fp32 prefill chunks; a row of no launch fails), the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
@@ -667,6 +681,108 @@ def phase_packed(torch, timer, dtype, n_segs, case=None, d=64,
             "profiler_ms": device_ms}
 
 
+# ----------------------------------------------------------- phase 4c
+
+FUSED_OPS = ("add_rms_norm", "qk_norm_rope_write", "silu_mul")
+# Qwen3-32B: d, H, Hkv, D, FFN, rope theta; the engine's lanes a layout
+FUSED_WIDTHS = (5120, 64, 8, 128, 25600, 1e6)
+FUSED_LAYOUTS = {"decode": 32, "packed": 512, "verify": 160}
+
+
+def fused_case(torch, dtype, op, layout, seed=20):
+    """Inputs of one fused op at Qwen3-32B's widths and a layout's lanes:
+    the decode step's 32 rows (the last 4 padding), the packed chunk's 512
+    lanes (the last 40 padding), the spec verify's 32 x 5 lanes (lanes
+    past each row's draft depth dead, two rows unoccupied).  Returns (the
+    op's arguments, bytes it must move)."""
+    d, h, hkv, hd, d_ff, theta = FUSED_WIDTHS
+    n = FUSED_LAYOUTS[layout]
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+    elt = torch.empty((), dtype=dt).element_size()
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=DEVICE, dtype=dt)
+    if op == "add_rms_norm":
+        return [randn(n, d), randn(n, d), randn(d)], (4 * n + 1) * d * elt
+    if op == "silu_mul":
+        return [randn(n, d_ff), randn(n, d_ff)], 3 * n * d_ff * elt
+    n_pages, page = 1024, 8
+    slots = rng.permutation(n_pages * page)[:n]
+    lane = np.arange(n)
+    if layout == "decode":
+        dead = lane >= n - 4
+    elif layout == "packed":
+        dead = lane >= n - 40
+    else:
+        nd = rng.randint(0, 5, size=n // 5)
+        nd[-2:] = -1
+        dead = lane % 5 > nd[lane // 5]
+    wr_page = np.where(dead, -1, slots // page).astype(np.int64)
+    half = hd // 2
+    angles = rng.randint(0, 2048, size=(n, 1)) / (
+        theta ** (np.arange(half) / half))
+    live = int((~dead).sum())
+    nbytes = ((n * (2 * h + 2 * hkv) * hd + 2 * hd) * elt + n * hd * 4 +
+              16 * n + 2 * live * hkv * hd * elt)
+    return [randn(n, h, hd), randn(n, hkv, hd), randn(n, hkv, hd),
+            randn(hd), randn(hd),
+            torch.from_numpy(np.cos(angles).astype(np.float32)).to(DEVICE),
+            torch.from_numpy(np.sin(angles).astype(np.float32)).to(DEVICE),
+            randn(n_pages, page, hkv, hd), randn(n_pages, page, hkv, hd),
+            torch.from_numpy(wr_page).to(DEVICE),
+            torch.from_numpy((slots % page).astype(np.int64)).to(DEVICE)
+            ], nbytes
+
+
+def phase_fused(torch, timer, dtype, op, layout):
+    """One fused kernel against its plain version at one layout: within
+    the dtype's tolerance, one launch, and (the K/V store) every page slot
+    outside a live lane's target byte-equal to its value before the call;
+    then its ms, profiler ms, plain ms and bound (its bytes at
+    3.35 TB/s)."""
+    from repro_torch.kernels import fused_block as fb
+    args, nbytes = fused_case(torch, dtype, op, layout)
+    plain = getattr(fb, f"{op}_plain")
+    kernel = getattr(fb, op)
+    if op == "qk_norm_rope_write":
+        k0, v0 = args[7].clone(), args[8].clone()
+        p_args = args[:7] + [k0.clone(), v0.clone()] + args[9:]
+        want = [plain(*p_args), p_args[7], p_args[8]]
+    else:
+        want = plain(*args)
+        want = list(want) if isinstance(want, tuple) else [want]
+    before = fb.launches.of(op)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    if fb.launches.of(op) != before + 1:
+        raise AssertionError(f"{op} [{layout}]: the kernel did not launch")
+    if op == "qk_norm_rope_write":
+        got = [got, args[7], args[8]]
+        live = args[9] >= 0
+        keep = torch.ones(args[7].shape[:2], dtype=torch.bool, device=DEVICE)
+        keep[args[9][live], args[10][live]] = False
+        if not (torch.equal(args[7][keep], k0[keep]) and
+                torch.equal(args[8][keep], v0[keep])):
+            raise AssertionError(f"{op} [{layout}]: a padding lane wrote a "
+                                 f"page")
+    elif not isinstance(got, tuple):
+        got = [got]
+    err = max(close_enough(g, w, TOL[dtype]) for g, w in zip(got, want))
+    kernel_ms = timer.ms(lambda: kernel(*args))
+    device_ms = profiled_ms(torch, timer, lambda: kernel(*args),
+                            (f"{op}_kernel",))
+    plain_ms = timer.ms(lambda: plain(*args))
+    bound_ms, bound_by = bound(nbytes, 0.0, dtype)
+    return {"name": op, "route": "cuda", "variant": layout,
+            "source": "src/repro_torch/kernels/csrc/fused_block.cu",
+            "replaces": "none (XLA fuses the chain inside jit)",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "profiler_ms": device_ms}
+
+
 # ------------------------------------------------------- phases 5 and 6
 
 
@@ -764,7 +880,8 @@ def serve_bf16(torch):
     Returns (summary, launches per kernel during the run)."""
     from repro_torch import serving
     from repro_torch.configs import get_config
-    from repro_torch.kernels import packed_prefill, paged_attention
+    from repro_torch.kernels import fused_block, packed_prefill, \
+        paged_attention
     from repro_torch.models import build_model
 
     cfg = get_config("tinyllama-1.1b")
@@ -782,6 +899,7 @@ def serve_bf16(torch):
     try:
         paged_attention.launches.reset()
         packed_prefill.launches.reset()
+        fused_block.launches.reset()
         t0 = time.perf_counter()
         handles = session.submit_many(prompts, max_new_tokens=n_new)
         outs = [hnd.result(timeout=600) for hnd in handles]
@@ -789,11 +907,33 @@ def serve_bf16(torch):
         launches = {"paged_attention": paged_attention.launches.count,
                     "packed_prefill_attention":
                         packed_prefill.launches.count}
+        launches.update({f"fused_block:{op}": fused_block.launches.of(op)
+                         for op in FUSED_OPS})
         packed_tc = packed_prefill.launches.of("wgmma")
         paged_tc = paged_attention.launches.of("mma")
         stats = session.stats()["totals"]
+        # one decode call of max_batch padding rows (no page written) on
+        # the live engine, under its step lock: the fused launches a step
+        shard = session.engine.shards[0]
+        with shard._step_lock, torch.inference_mode():
+            fused_block.launches.reset()
+            shard._decode_logits([])
+            per_step = dict(fused_block.launches.by_variant)
     finally:
         session.close()
+    n_l = cfg.n_layers
+    want_step = {"add_rms_norm": 2 * n_l + 1, "qk_norm_rope_write": n_l,
+                 "silu_mul": n_l}
+    if per_step != want_step:
+        raise AssertionError(f"bf16: fused launches a decode step "
+                             f"{per_step}, want {want_step}")
+    if stats["eager_blocks"] or not (
+            launches["fused_block:qk_norm_rope_write"] ==
+            launches["fused_block:silu_mul"] == stats["fused_blocks"]):
+        raise AssertionError(
+            f"bf16: {stats['fused_blocks']} fused and "
+            f"{stats['eager_blocks']} eager block passes, fused launches "
+            f"{launches}: every block must run the fused kernels once")
     if any(len(o) != n_new for o in outs) or stats["failed"]:
         raise AssertionError(f"bf16: not every request completed with "
                              f"{n_new} tokens ({[len(o) for o in outs]})")
@@ -830,7 +970,9 @@ def serve_bf16(torch):
         "paged_launches_decode_steps": paged_tc - rider_paged,
         "paged_launches_riders": rider_paged,
         "decode_steps": (paged_tc - rider_paged) // cfg.n_layers,
-        "rider_chunks": stats["rider_chunks"]}
+        "rider_chunks": stats["rider_chunks"],
+        "fused_block_passes": stats["fused_blocks"],
+        "fused_launches_a_decode_step": per_step}
     return summary, launches
 
 
@@ -1078,28 +1220,34 @@ def traced_layers(shard, rec, keep=lambda x: True):
     0, lane 0 of every op's output in every layer into ``rec`` (for the
     calls whose input ``keep`` accepts): the decode step's row 0, or the
     verify chunk's lane 0 (row 0's x_last)."""
-    from repro_torch.serving import engine as eng
+    from repro_torch.kernels import ops
 
-    def layers(x, angles, write, attend):
+    def layers(x, rope, wr_page, wr_slot, attend):
+        cfg = shard.cfg
         b, s, _ = x.shape
         record = keep(x)
+        cos, sin = rope
+        r = None
         for i, blk in enumerate(shard.params.blocks):
-            h = eng.rms_norm(x, blk.ln1)
-            q, k, v = eng._qkv(blk.attn, shard.cfg, h)
+            a, f = blk.attn, blk.ffn
+            x, h = ops.add_rms_norm(x, r, blk.ln1)
+            q = (h @ a.wq).view(b, s, cfg.n_heads, cfg.head_dim)
+            k = (h @ a.wk).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+            v = (h @ a.wv).view(b, s, cfg.n_kv_heads, cfg.head_dim)
             step = {"x": x, "rms_norm": h, "q_proj": q, "k_proj": k,
                     "v_proj": v}
-            q = eng.apply_rope(q, angles)
-            k = eng.apply_rope(k, angles)
-            write(i, k, v)
+            q = ops.qk_norm_rope_write(
+                q, k, v, a.q_norm if cfg.qk_norm else None,
+                a.k_norm if cfg.qk_norm else None, cos, sin,
+                shard.k_pages[i], shard.v_pages[i], wr_page, wr_slot)
             out = attend(i, q).reshape(b, s, -1)
-            o = out @ blk.attn.wo
-            x = x + o
-            f = eng.ffn_apply(blk.ffn, eng.rms_norm(x, blk.ln2))
-            x = x + f
-            step.update(attention=out, o_proj=o, ffn=f)
+            o = out @ a.wo
+            x, h = ops.add_rms_norm(x, o, blk.ln2)
+            r = ops.silu_mul(h @ f.wi_gate, h @ f.wi_up) @ f.wo
+            step.update(attention=out, o_proj=o, ffn=r)
             if record:
                 rec.append({n: t[0, 0].clone() for n, t in step.items()})
-        return x
+        return x + r
     return layers
 
 
@@ -3481,8 +3629,8 @@ FLASH_FMA_CASES = [
     (4, 1000, dict(d=96, want_variant="fma")),
 ]
 
-PHASES = ("3", "4", "4b", "5", "6", "7", "8", "9", "10", "11", "12", "13",
-          "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b",
+PHASES = ("3", "4", "4b", "4c", "5", "6", "7", "8", "9", "10", "11", "12",
+          "13", "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b",
           "16b-seeds", "16c", "16d", "17a", "17b", "17c", "17d", "18a",
           "18b", "18c")
 
@@ -3606,6 +3754,20 @@ def main(argv) -> int:
             f"{fmt_ms(row['profiler_ms'])} plain {row['plain_ms']:.4f} "
             f"library {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
             f"({row['bound_by']}) [{card}] {time.perf_counter() - t0:.1f} s")
+
+    for dtype in ("float32", "bfloat16") if on("4c") else ():
+        for op in FUSED_OPS:
+            for layout in FUSED_LAYOUTS:
+                t0 = time.perf_counter()
+                row = phase_fused(torch, timer, dtype, op, layout)
+                kernels[("fused", dtype, op, layout)] = row
+                say(f"[4c fused {op} {dtype} {layout} "
+                    f"{FUSED_LAYOUTS[layout]} lanes] max_abs_err "
+                    f"{row['max_abs_err']:.3g}, padding wrote no page; ms "
+                    f"{row['ms']:.4f} profiler {fmt_ms(row['profiler_ms'])} "
+                    f"plain {row['plain_ms']:.4f} bound "
+                    f"{row['bound_ms']:.5f} ({row['bound_by']}) [{card}] "
+                    f"{time.perf_counter() - t0:.1f} s")
 
     if on("5"):
         t0 = time.perf_counter()
@@ -3851,7 +4013,9 @@ def main(argv) -> int:
                  "flash_attention_tf32x3", "flash_attention:tf32x3"),
                 (("flash", "float32", 2, 64, 16, 64), "flash_attention_fma",
                  "flash_attention:fma"),
-                (("ssd", "bfloat16", 128, 1024), "ssd_scan", "ssd_scan")):
+                (("ssd", "bfloat16", 128, 1024), "ssd_scan", "ssd_scan"),
+                *((("fused", "bfloat16", op, "decode"), op,
+                   f"fused_block:{op}") for op in FUSED_OPS)):
             row = {k: v for k, v in kernels[key].items()
                    if k not in ("errs", "splits", "no_keys_profiler_ms",
                                 "long_row", "shares", "fma", "rows",

@@ -11,12 +11,14 @@ import torch
 
 from . import build, ref
 from .flash_attention import flash_attention
+from .fused_block import add_rms_norm, qk_norm_rope_write, silu_mul
 from .packed_prefill import packed_prefill_attention
 from .paged_attention import paged_attention, paged_splits
 from .ssd_scan import ssd_scan as ssd
 
 __all__ = ["flash_attention", "paged_attention", "paged_splits",
-           "packed_prefill_attention", "ssd", "sample_tokens",
+           "packed_prefill_attention", "ssd", "add_rms_norm",
+           "qk_norm_rope_write", "silu_mul", "sample_tokens",
            "spec_verify_rows", "prepare"]
 
 

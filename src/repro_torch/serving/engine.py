@@ -31,10 +31,14 @@ the reference's):
 * The KV pool is a pair of ``(L, num_pages, page, Hkv, D)`` tensors on the
   engine's device, updated IN PLACE (the reference donates its buffers to
   ``jit``).  The device functions are plain methods; PyTorch runs eagerly.
-* Masked writes: only valid lanes / occupied rows are written
-  (``index_put_`` on the selected positions).  A padding lane or an
-  unoccupied row never writes a page, shared or recycled (the reference
-  scatters them out of bounds with ``mode="drop"``).
+* Masked writes: every lane carries a write target, and a padding lane
+  or an unoccupied row carries page -1, which writes nothing: it never
+  touches a page, shared or recycled (the reference scatters them out of
+  bounds with ``mode="drop"``).
+* Each decoder block's elementwise chain runs as three fused kernels
+  (``kernels/fused_block.py``: add + RMSNorm, q/k RMSNorm + RoPE + the
+  K/V store, SiLU * mul) around the matrix products, where XLA fuses it
+  inside the reference's ``jit``; the rope table is made once a call.
 * Every prefill attends through ``ops.packed_prefill_attention``: the
   ``chunked`` scheduler's single-sequence chunk is a packed chunk with one
   segment, so the default scheduler launches the kernel too.  The packed
@@ -393,6 +397,10 @@ class _ShardEngine:
         # lengths (the keys the paged kernel reads a layer)
         self.decode_rows = 0
         self.decode_kv_tokens = 0
+        # decoder-block passes of the device functions through the fused
+        # kernels (a CUDA engine) and through their plain versions
+        self.fused_blocks = 0
+        self.eager_blocks = 0
         # ITL gap accounting: intervals spanning a preemption park or a
         # migration stall, excluded from itl() and the SLO observation
         self.n_gap_intervals = 0
@@ -615,27 +623,54 @@ class _ShardEngine:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _layers(self, x, angles, write, attend):
-        """Run every decoder block over x (B, S, d).  ``write(i, k, v)``
-        stores the layer's new K/V into the pool (valid lanes only) and
-        ``attend(i, q)`` returns the (B, S, H, D) attention output over the
-        pool — the only two places the device functions differ."""
+    def _rope(self, positions):
+        """The call's rope table: (cos, sin) of the angles at ``positions``
+        (..., ) → two (..., D/2) fp32 tensors, made once for every layer."""
+        angles = rope_angles(positions, self.cfg.head_dim,
+                             self.cfg.rope_theta)
+        return torch.cos(angles), torch.sin(angles)
+
+    def _layers(self, x, rope, wr_page, wr_slot, attend):
+        """Run every decoder block over x (B, S, d).  ``rope`` is the call's
+        (cos, sin) table (:meth:`_rope`); each of the B * S lanes stores its
+        K/V into the pool at (``wr_page``, ``wr_slot``), (B * S,) int64, a
+        negative page writing nothing; ``attend(i, q)`` returns the
+        (B, S, H, D) attention output over the pool.  The targets and
+        ``attend`` are the only places the device functions differ.
+
+        The chain between the products runs through the fused ops
+        (``kernels/fused_block.py``): add + RMSNorm at ``ln1`` (folding in
+        the previous block's FFN output) and at ``ln2`` (the attention
+        output), q/k RMSNorm + RoPE + the K/V store, SiLU * mul.  On a CPU
+        tensor each is the plain chain, op for op."""
         cfg = self.cfg
         b, s, _ = x.shape
+        heads = (b, s, cfg.n_heads, cfg.head_dim)
+        kv_heads = (b, s, cfg.n_kv_heads, cfg.head_dim)
+        cos, sin = rope
+        r = None
         for i, blk in enumerate(self.params.blocks):
-            h = rms_norm(x, blk.ln1)
-            q, k, v = _qkv(blk.attn, cfg, h)
-            q = apply_rope(q, angles)
-            k = apply_rope(k, angles)
-            write(i, k, v)
+            a, f = blk.attn, blk.ffn
+            x, h = ops.add_rms_norm(x, r, blk.ln1)
+            q = ops.qk_norm_rope_write(
+                (h @ a.wq).view(heads), (h @ a.wk).view(kv_heads),
+                (h @ a.wv).view(kv_heads),
+                a.q_norm if cfg.qk_norm else None,
+                a.k_norm if cfg.qk_norm else None, cos, sin,
+                self.k_pages[i], self.v_pages[i], wr_page, wr_slot)
             out = attend(i, q)
-            x = x + out.reshape(b, s, -1) @ blk.attn.wo
-            x = x + ffn_apply(blk.ffn, rms_norm(x, blk.ln2))
-        return x
+            x, h = ops.add_rms_norm(x, out.reshape(b, s, -1) @ a.wo, blk.ln2)
+            r = ops.silu_mul(h @ f.wi_gate, h @ f.wi_up) @ f.wo
+        if x.is_cuda:
+            self.fused_blocks += len(self.params.blocks)
+        else:
+            self.eager_blocks += len(self.params.blocks)
+        return x + r
 
     def _logits(self, h):
         """Final norm + LM head on the rows that emit, h (N, d) → (N, V)."""
-        return rms_norm(h, self.params.final_norm) @ self.params.lm_head
+        return ops.add_rms_norm(h, None, self.params.final_norm)[1] @ \
+            self.params.lm_head
 
     def _paged_prefill(self, tokens, page_row, start: int, n_valid: int,
                        emit: bool):
@@ -652,40 +687,35 @@ class _ShardEngine:
         positions start + arange(C), seg_ctx [start + n_valid]), exactly
         like a packed chunk — so chunk N resumes bit-identically from chunk
         N-1's boundary whether that boundary came from a cache hit or an
-        earlier chunk.  Only the n_valid lanes write K/V.
+        earlier chunk.  Only the n_valid lanes write K/V (the padding
+        lanes' page is -1).
 
         Returns the (1, V) logits of the last valid lane when ``emit``
         (the final chunk), else None."""
-        cfg = self.cfg
         c = tokens.shape[0]
         pos = start + np.arange(c, dtype=np.int32)
         seg = np.where(np.arange(c) < n_valid, 0, -1).astype(np.int32)
-        wr_pos = pos[:n_valid]
-        wr_page = self._to_dev(page_row[wr_pos // self.page_size]
-                               .astype(np.int64))
-        wr_slot = self._to_dev((wr_pos % self.page_size).astype(np.int64))
+        wr_page = np.full((c,), -1, np.int64)
+        wr_page[:n_valid] = page_row[pos[:n_valid] // self.page_size]
         positions = self._to_dev(pos)
         seg_ids = self._to_dev(seg)
         page_rows = self._to_dev(page_row[None])
         seg_ctx = self._to_dev(np.asarray([start + n_valid], np.int32))
         x = self.params.embed[self._to_dev(tokens.astype(np.int64))][None]
-        angles = rope_angles(positions[None], cfg.head_dim, cfg.rope_theta)
-
-        def write(i, k, v):
-            self.k_pages[i, wr_page, wr_slot] = k[0, :n_valid]
-            self.v_pages[i, wr_page, wr_slot] = v[0, :n_valid]
 
         def attend(i, q):
             return ops.packed_prefill_attention(
                 q[0], self.k_pages[i], self.v_pages[i], page_rows, seg_ids,
                 positions, seg_ctx)
 
-        x = self._layers(x, angles, write, attend)
+        x = self._layers(x, self._rope(positions[None]),
+                         self._to_dev(wr_page),
+                         self._to_dev((pos % self.page_size).astype(np.int64)),
+                         attend)
         return self._logits(x[:, n_valid - 1]) if emit else None
 
     def _paged_prefill_packed(self, tokens, seg_ids, positions, page_rows,
-                              seg_ctx, emit_lanes, wr_lanes, wr_page,
-                              wr_slot):
+                              seg_ctx, emit_lanes, wr_page, wr_slot):
         """Ingest ONE packed multi-segment chunk (the ``packed`` scheduler).
 
         tokens: (C,) — several sequences' prompt slices laid end to end
@@ -697,45 +727,34 @@ class _ShardEngine:
         seg_ctx (S,) each segment's context end AFTER this chunk.  K/V is
         written into the pages per layer BEFORE attention reads them, so
         lanes of the same segment see their earlier same-chunk neighbours
-        through the pages.  Only the valid lanes (wr_lanes, with their
-        page/slot targets) write.
+        through the pages.  wr_page / wr_slot (C,) int64: each lane's
+        target; padding lanes carry page -1 and write nothing.
 
         emit_lanes (S,): the lane holding each segment's LAST token (clamped
         into range; rows of non-emitting segments are ignored by the host).
         Returns the (S, V) logits of those lanes."""
-        cfg = self.cfg
         x = self.params.embed[tokens][None]               # (1, C, d)
-        angles = rope_angles(positions[None], cfg.head_dim, cfg.rope_theta)
-
-        def write(i, k, v):
-            self.k_pages[i, wr_page, wr_slot] = k[0, wr_lanes]
-            self.v_pages[i, wr_page, wr_slot] = v[0, wr_lanes]
 
         def attend(i, q):
             return ops.packed_prefill_attention(
                 q[0], self.k_pages[i], self.v_pages[i], page_rows, seg_ids,
                 positions, seg_ctx)
 
-        x = self._layers(x, angles, write, attend)
+        x = self._layers(x, self._rope(positions[None]), wr_page, wr_slot,
+                         attend)
         # one lm_head row per SEGMENT (S rows), not per lane
         return self._logits(x[0, emit_lanes])
 
     def _paged_decode_step(self, block_tables, ctx_lens, tokens, occ,
-                           occ_rows, wr_page, wr_slot):
+                           positions, wr_page, wr_slot):
         """One token for every batch row.  ctx_lens INCLUDE the new token;
-        its K/V is written at position ctx_lens-1 for the occupied rows
-        only (occ_rows, with their page/slot targets).  ``occ`` (B,) bool
-        marks real sequences: padded rows never write a page, reused or
-        otherwise, and the kernel pins their attention output to zero, so
-        padding needs no reserved scratch page.  Returns (B, V) logits."""
-        cfg = self.cfg
+        its K/V is written at position ``positions`` = ctx_lens-1 (B,)
+        int64, at (wr_page, wr_slot) (B,) int64.  ``occ`` (B,) bool marks
+        real sequences: padded rows carry page -1 and never write a page,
+        reused or otherwise, and the kernel pins their attention output to
+        zero, so padding needs no reserved scratch page.  Returns (B, V)
+        logits."""
         x = self.params.embed[tokens][:, None, :]         # (B, 1, d)
-        angles = rope_angles((ctx_lens - 1)[:, None], cfg.head_dim,
-                             cfg.rope_theta)
-
-        def write(i, k, v):
-            self.k_pages[i, wr_page, wr_slot] = k[occ_rows, 0]
-            self.v_pages[i, wr_page, wr_slot] = v[occ_rows, 0]
 
         def attend(i, q):
             return ops.paged_attention(q[:, 0], self.k_pages[i],
@@ -743,7 +762,8 @@ class _ShardEngine:
                                        ctx_lens, occupancy=occ,
                                        num_splits=self.decode_splits)
 
-        x = self._layers(x, angles, write, attend)
+        x = self._layers(x, self._rope(positions[:, None]), wr_page, wr_slot,
+                         attend)
         return self._logits(x[:, 0])
 
     @staticmethod
@@ -879,12 +899,13 @@ class _ShardEngine:
         holds row i's token j (j == 0 → x_last, the latest emitted token
         whose K/V is not yet written; j >= 1 → d_toks[i, j-1]) at absolute
         position ctx[i] - 1 + j.  Dead lanes (j > nd[i], or unoccupied
-        rows) write nothing and attend nothing; their positions may lie
-        past the row's page run, so the write targets are taken on the
-        host for the live lanes only (the reference gathers every lane's
-        page index and relies on XLA clamping it).  In a sampled row's
-        first round the j == 0 lane REWRITES the last prompt position,
-        which the prefill chunk wrote (see :meth:`_finish_prefill`).
+        rows) write nothing (page -1) and attend nothing; their positions
+        may lie past the row's page run, so the write targets are taken on
+        the host for the live lanes only (the reference gathers every
+        lane's page index and relies on XLA clamping it).  In a sampled
+        row's first round the j == 0 lane REWRITES the last prompt
+        position, which the prefill chunk wrote (see
+        :meth:`_finish_prefill`).
 
         Attention runs each lane as one row of the paged decode kernel:
         the row's block table, ctx = the lane's position + 1, and the
@@ -911,7 +932,6 @@ class _ShardEngine:
         d_toks / q_dists stay on the device from :meth:`_draft_propose`.
         Returns host (toks (B, k+1), n_emit (B,), lps (B, k+1)); n_emit is
         zeroed for unoccupied rows."""
-        cfg = self.cfg
         b = x_last.shape[0]
         lanes_per = self.spec_k + 1
         pgsz = self.page_size
@@ -919,10 +939,8 @@ class _ShardEngine:
             ctx, nd, occ, self.spec_k)
         live = seg_ids >= 0
         wr = np.flatnonzero(live)
-        wr_lanes = self._to_dev(wr)
-        wr_page = self._to_dev(rows[lane_row[wr], positions[wr] // pgsz]
-                               .astype(np.int64))
-        wr_slot = self._to_dev((positions[wr] % pgsz).astype(np.int64))
+        wr_page = np.full(live.shape, -1, np.int64)
+        wr_page[wr] = rows[lane_row[wr], positions[wr] // pgsz]
         pos_d = self._to_dev(positions)
         lane_tables = self._to_dev(rows[lane_row])
         lane_ctx = self._to_dev(np.where(live, positions + 1, 0)
@@ -930,11 +948,6 @@ class _ShardEngine:
         live_d = self._to_dev(live)
         toks = torch.cat([self._to_dev(x_last)[:, None], d_toks], dim=1)
         x = self.params.embed[toks.reshape(-1)][None]        # (1, LV, d)
-        angles = rope_angles(pos_d[None], cfg.head_dim, cfg.rope_theta)
-
-        def write(i, k, v):
-            self.k_pages[i, wr_page, wr_slot] = k[0, wr_lanes]
-            self.v_pages[i, wr_page, wr_slot] = v[0, wr_lanes]
 
         def attend(i, q):
             out = ops.paged_attention(
@@ -942,7 +955,9 @@ class _ShardEngine:
                 lane_ctx, occupancy=live_d, num_splits=self.decode_splits)
             return out[None]
 
-        x = self._layers(x, angles, write, attend)
+        x = self._layers(x, self._rope(pos_d[None]), self._to_dev(wr_page),
+                         self._to_dev((positions % pgsz).astype(np.int64)),
+                         attend)
         logits = self._logits(x[0])                           # (LV, V)
         p_dists = kref.filtered_dist_ref(
             logits, sampf[lane_row, 0], sampi[lane_row, 0],
@@ -1449,8 +1464,8 @@ class _ShardEngine:
                 toks = np.zeros((chunk,), np.int64)
                 segs = np.full((chunk,), -1, np.int32)
                 poss = np.zeros((chunk,), np.int32)
-                # per-lane write targets (padding lanes write nothing)
-                upd = np.zeros((chunk,), np.int64)
+                # per-lane write targets (padding lanes: page -1, no write)
+                upd = np.full((chunk,), -1, np.int64)
                 slot = np.zeros((chunk,), np.int64)
                 rows = np.zeros((n_segs, self.max_pages), np.int32)
                 ctxs = np.zeros((n_segs,), np.int32)
@@ -1496,15 +1511,13 @@ class _ShardEngine:
                 # slice of the per-segment operands is sufficient)
                 n_b = min(n_segs,
                           1 << max(0, len(members) - 1).bit_length())
-                wr = np.flatnonzero(segs >= 0)
                 logits = self._paged_prefill_packed(
                     self._to_dev(toks), self._to_dev(segs),
                     self._to_dev(poss),
                     self._to_dev(rows[:n_b]), self._to_dev(ctxs[:n_b]),
                     self._to_dev(np.clip(emit[:n_b], 0, chunk - 1)
                                  .astype(np.int64)),
-                    self._to_dev(wr), self._to_dev(upd[wr]),
-                    self._to_dev(slot[wr]))[:len(members)]
+                    self._to_dev(upd), self._to_dev(slot))[:len(members)]
             seqs = [seq for seq, _ in members]
             spos = spos[:len(members)]
             n_riders = len(riders) if first else 0
@@ -1553,15 +1566,15 @@ class _ShardEngine:
                 toks[i] = seq.tokens[-1]
                 occ[i] = True
             n = len(batch_seqs)
-            pos = ctx[:n] - 1
+            pos = (ctx - 1).astype(np.int64)
             self.decode_rows += n
             self.decode_kv_tokens += int(ctx[:n].sum())
-            wr_page = bt[np.arange(n), pos // self.page_size].astype(np.int64)
+            wr_page = np.where(occ, bt[np.arange(b), pos // self.page_size],
+                               -1).astype(np.int64)
             logits = self._paged_decode_step(
                 self._to_dev(bt), self._to_dev(ctx), self._to_dev(toks),
-                self._to_dev(occ), self._to_dev(np.arange(n)),
-                self._to_dev(wr_page),
-                self._to_dev((pos % self.page_size).astype(np.int64)))
+                self._to_dev(occ), self._to_dev(pos), self._to_dev(wr_page),
+                self._to_dev(pos % self.page_size))
             return logits, ctx
 
     def _decode_batch(self, batch_seqs):
@@ -1696,19 +1709,19 @@ class _ShardEngine:
         if not getattr(self.scheduler, "packs", False):
             return
         chunk = self.config.prefill_chunk_tokens
-        toks = self._to_dev(np.zeros((chunk,), np.int64))
+        zeros = self._to_dev(np.zeros((chunk,), np.int64))
         segs = self._to_dev(np.full((chunk,), -1, np.int32))
         poss = self._to_dev(np.zeros((chunk,), np.int32))
-        none = self._to_dev(np.zeros((0,), np.int64))
+        no_page = self._to_dev(np.full((chunk,), -1, np.int64))
         with self._step_lock, torch.inference_mode():
             n_b = 1
             while True:
                 self._paged_prefill_packed(
-                    toks, segs, poss,
+                    zeros, segs, poss,
                     self._to_dev(np.zeros((n_b, self.max_pages), np.int32)),
                     self._to_dev(np.zeros((n_b,), np.int32)),
                     self._to_dev(np.zeros((n_b,), np.int64)),
-                    none, none, none)
+                    no_page, zeros)
                 if n_b >= self.max_batch:
                     break
                 n_b = min(self.max_batch, n_b * 2)
@@ -1993,6 +2006,8 @@ class _ShardEngine:
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "decode_rows": self.decode_rows,
             "decode_kv_tokens": self.decode_kv_tokens,
+            "fused_blocks": self.fused_blocks,
+            "eager_blocks": self.eager_blocks,
             # {span name: (count, seconds)} (serving/spans.py)
             "spans": spans,
         }

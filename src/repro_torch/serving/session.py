@@ -522,7 +522,7 @@ class ServingSession:
         }
         # the serving loop's counters and span totals (serving/spans.py)
         for key in ("prefill_tokens_computed", "decode_rows",
-                    "decode_kv_tokens"):
+                    "decode_kv_tokens", "fused_blocks", "eager_blocks"):
             totals[key] = sum(s[key] for s in shards)
         for s in shards:
             for name, (n, sec) in s["spans"].items():

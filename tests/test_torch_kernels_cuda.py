@@ -44,6 +44,13 @@ row's page run), in both variants; dead lanes must come out exactly 0.
 The sampler (plain tensor math, no kernel) is held on the card against
 its CPU run: PRNG keys and bits bit-equal, tokens equal.
 
+The decoder block's fused elementwise kernels (add + RMSNorm, q/k
+RMSNorm + RoPE + the paged K/V store, SiLU * mul) are held at the serving
+engine's layouts (the decode step's 32 rows, the packed chunk's 512
+lanes, the spec verify's 160) and the widths of Qwen3-32B and
+TinyLlama-1.1B, and off their vector path; padding rows and lanes must
+leave every page byte as it was.
+
 The input builders are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_spec_swap.py``, which hold the plain versions against
 the JAX package on the CPU."""
@@ -55,6 +62,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import fused_block as tfb
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_prefill as tpp
 from repro_torch.kernels import paged_attention as tpa
@@ -976,3 +984,160 @@ def test_ssd_under_grad_runs_the_kernel_with_the_plain_backward(
     for g, w, t in zip(got, want, ins):
         assert g.dtype == t.dtype and torch.equal(g, w)
         assert torch.isfinite(g.float()).all()
+
+
+# ---------------------------------------------- the fused block chain
+
+# (d, H, Hkv, D, qk_norm, d_ff, rope_theta) of the published configs
+FB_WIDTHS = {"qwen3-32b": (5120, 64, 8, 128, True, 25600, 1e6),
+             "tinyllama-1.1b": (2048, 32, 4, 64, False, 5632, 1e4)}
+# lanes of the serving engine's three layouts: the decode step's max_batch
+# rows, the packed chunk, the spec verify chunk (32 rows x (spec_k 4 + 1))
+FB_LAYOUTS = {"decode": 32, "packed": 512, "verify": 160}
+FB_PAGE, FB_PAGES = 8, 512
+
+
+def _fb_targets(layout, n, rng):
+    """Distinct (page, slot) targets of n lanes, page -1 on the layout's
+    padding: the decode step's last 4 rows, the packed chunk's last 40
+    lanes, the verify lanes past each row's draft depth and two whole
+    rows."""
+    slots = rng.permutation(FB_PAGES * FB_PAGE)[:n]
+    lane = np.arange(n)
+    if layout == "decode":
+        dead = lane >= n - 4
+    elif layout == "packed":
+        dead = lane >= n - 40
+    else:
+        nd = rng.randint(0, 5, size=n // 5)
+        nd[-2:] = -1
+        dead = lane % 5 > nd[lane // 5]
+    page = np.where(dead, -1, slots // FB_PAGE).astype(np.int64)
+    return page, (slots % FB_PAGE).astype(np.int64)
+
+
+def _fb_case(op, widths, layout, dtype, device, seed):
+    d, h, hkv, hd, qk_norm, d_ff, theta = FB_WIDTHS[widths]
+    n = FB_LAYOUTS[layout]
+    rng = np.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dt)
+    if op == "add_rms_norm":
+        return [randn(n, d), randn(n, d), randn(d)]
+    if op == "silu_mul":
+        return [randn(n, d_ff), randn(n, d_ff)]
+    pos = torch.from_numpy(rng.randint(0, 2048, size=(n,))).to(device)
+    half = hd // 2
+    inv = 1.0 / (theta ** (torch.arange(half, device=device,
+                                        dtype=torch.float32) / half))
+    angles = pos[:, None].float() * inv
+    page, slot = _fb_targets(layout, n, rng)
+    return [randn(n, h, hd), randn(n, hkv, hd), randn(n, hkv, hd),
+            randn(hd) if qk_norm else None, randn(hd) if qk_norm else None,
+            torch.cos(angles), torch.sin(angles),
+            randn(FB_PAGES, FB_PAGE, hkv, hd),
+            randn(FB_PAGES, FB_PAGE, hkv, hd),
+            torch.from_numpy(page).to(device),
+            torch.from_numpy(slot).to(device)]
+
+
+def _fb_hold(op, args, dtype):
+    """Run the kernel and the plain version on the same inputs; hold the
+    outputs (and the pages) at the dtype's tolerance, the launch counter
+    at +1, and every page slot outside a live lane's target at its bytes
+    before the call."""
+    plain = getattr(tfb, f"{op}_plain")
+    if op == "qk_norm_rope_write":
+        k0, v0 = args[7].clone(), args[8].clone()
+        p_args = args[:7] + [k0.clone(), v0.clone()] + args[9:]
+        want = [plain(*p_args), p_args[7], p_args[8]]
+    else:
+        want = plain(*args)
+        want = list(want) if isinstance(want, tuple) else [want]
+    before = tfb.launches.of(op)
+    got = getattr(ops, op)(*args)
+    torch.cuda.synchronize()
+    assert tfb.launches.of(op) == before + 1
+    if op == "qk_norm_rope_write":
+        got = [got, args[7], args[8]]
+        live = args[9] >= 0
+        keep = torch.ones(args[7].shape[:2], dtype=torch.bool,
+                          device=args[7].device)
+        keep[args[9][live], args[10][live]] = False
+        assert torch.equal(args[7][keep], k0[keep])
+        assert torch.equal(args[8][keep], v0[keep])
+    elif not isinstance(got, tuple):
+        got = [got]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), **TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(FB_LAYOUTS))
+@pytest.mark.parametrize("widths", sorted(FB_WIDTHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["add_rms_norm", "qk_norm_rope_write",
+                                "silu_mul"])
+def test_fused_block_kernel_matches_plain(cuda_device, op, dtype, widths,
+                                          layout):
+    """Each fused kernel at the serving engine's layouts (the decode
+    step's 32 rows, the packed chunk's 512 lanes, the spec verify's 160)
+    and the widths of Qwen3-32B (q/k norm, D 128) and TinyLlama-1.1B (D
+    64): within the repo's tolerance of the plain version, and the
+    padding rows and lanes leave their pages exactly as they were."""
+    _fb_hold(op, _fb_case(op, widths, layout, dtype, cuda_device, seed=50),
+             dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_block_kernels_off_the_vector_path(cuda_device, dtype):
+    """Rows no 16-byte vector divides (d 100, 37 x 99 elements), a row
+    without residual, and the reduced configs' D 16: the scalar paths
+    against the plain versions; an all-padding call writes no page."""
+    rng = np.random.RandomState(51)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=cuda_device, dtype=dt)
+    _fb_hold("add_rms_norm", [randn(7, 100), randn(7, 100), randn(100)],
+             dtype)
+    _fb_hold("add_rms_norm", [randn(3, 64), None, randn(64)], dtype)
+    _fb_hold("silu_mul", [randn(37, 99), randn(37, 99)], dtype)
+    n, hd = 6, 16
+    angles = torch.from_numpy(rng.uniform(0, 50, size=(n, hd // 2)).astype(
+        np.float32)).to(cuda_device)
+    page = torch.tensor([0, -1, 3, 5, -1, 7], device=cuda_device)
+    slot = torch.tensor([1, 1, 2, 3, 0, 7], device=cuda_device)
+    args = [randn(n, 4, hd), randn(n, 2, hd), randn(n, 2, hd), randn(hd),
+            randn(hd), torch.cos(angles), torch.sin(angles),
+            randn(8, 8, 2, hd), randn(8, 8, 2, hd), page, slot]
+    _fb_hold("qk_norm_rope_write", args, dtype)
+    args[9] = torch.full_like(page, -1)
+    kp, vp = args[7].clone(), args[8].clone()
+    ops.qk_norm_rope_write(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(args[7], kp) and torch.equal(args[8], vp)
+
+
+@pytest.mark.cuda
+def test_fused_block_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    x = torch.ones(2, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        ops.add_rms_norm(x, None, torch.ones(64, device=cuda_device))
+    with pytest.raises(ValueError):
+        ops.silu_mul(x, torch.ones(2, 32, device=cuda_device,
+                                   dtype=torch.bfloat16))
+    q = torch.ones(2, 1, 512, device=cuda_device)
+    pages = torch.ones(4, 8, 1, 512, device=cuda_device)
+    cs = torch.ones(2, 256, device=cuda_device)
+    tgt = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):          # D above the kernel's 256
+        ops.qk_norm_rope_write(q, q, q, None, None, cs, cs, pages, pages,
+                               tgt, tgt)
