@@ -2,8 +2,10 @@
 ``configs/<config>.json`` and ``mixes/<mix>.json``; the mix's ``kind``
 names ``traffic/<kind>.py``; a metric ``m`` is read by
 ``metrics/<m>.py``; the limits of a cell's correctness check sit in
-``limits/<cell>.json``.  ``BENCHMARK.json`` at the root says which
-metrics a cell reports."""
+``limits/<cell>.json``; the config's published ``model_type`` names
+``archs/<model_type>.py``, which makes the weights, the port's config
+and parameters, the plain reference and the architecture's counts.
+``BENCHMARK.json`` at the root says which metrics a cell reports."""
 
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ class Cell:
     mix: dict
     limits: Dict[str, float] = field(default_factory=dict)
 
+    @property
+    def arch(self):
+        """The architecture of the cell's config (:func:`arch_of`)."""
+        return arch_of(self.config)
+
 
 def load_json(path: Path) -> dict:
     with open(path) as f:
@@ -37,8 +44,9 @@ def find_cell(workload: str) -> Cell:
     if not config or not mix:
         raise ValueError(f"a workload is <config>.<mix>, got {workload!r}")
     lim = HERE / "limits" / f"{workload}.json"
-    return Cell(workload, load_json(HERE / "configs" / f"{config}.json"),
-                load_json(HERE / "mixes" / f"{mix}.json"),
+    cfg = load_json(HERE / "configs" / f"{config}.json")
+    arch_of(cfg)
+    return Cell(workload, cfg, load_json(HERE / "mixes" / f"{mix}.json"),
                 load_json(lim) if lim.exists() else {})
 
 
@@ -59,6 +67,17 @@ def plugin(kind: str, name: str):
         spec.loader.exec_module(mod)
         _plugins[key] = mod
     return _plugins[key]
+
+
+def arch_of(cfg: dict):
+    """The module ``archs/<model_type>.py`` of the config ``cfg``; a
+    ``FileNotFoundError`` naming the path where there is none."""
+    path = HERE / "archs" / f"{cfg.get('model_type')}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"config {cfg.get('name')!r}: no architecture for model_type "
+            f"{cfg.get('model_type')!r}; {path} is missing")
+    return plugin("archs", cfg["model_type"])
 
 
 def metrics_of(workload: str, trace: bool,

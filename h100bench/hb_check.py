@@ -1,7 +1,8 @@
 """Whether what the window served is right: a seeded sample of the
 requests it finished, the longest among them, run once through the plain
-fp32 reference (:mod:`reference.qwen3`) over each prompt and its served
-tokens, teacher-forced.
+fp32 reference of the config's architecture (``reference`` of
+``archs/<model_type>.py``) over each prompt and its served tokens,
+teacher-forced.
 
 Every served token is greedy.  Its gap is how far its reference logit
 lies below the reference's best at that position.  The numbers compared
@@ -16,8 +17,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-from reference import qwen3
 
 
 def choose(records, rng: np.random.Generator, served_target: int,
@@ -54,14 +53,15 @@ def gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return logits.max(dim=-1).values - logits[rows, tokens]
 
 
-def gap_readings(weights: qwen3.Weights, cfg: dict, chosen,
+def gap_readings(reference, weights, cfg: dict, chosen,
                  control: bool = False,
                  block_tokens: int = 16384) -> Dict[str, Optional[float]]:
     """The widest gap of the served tokens of ``chosen`` (and, with
     ``control``, of the fp8 control's picks at the same positions),
-    reading the reference in groups of at most ``block_tokens`` tokens."""
-    qwen3.strict_fp32()
-    dev = weights.embed.device
+    reading ``reference`` (the architecture's plain module: ``logits_at``,
+    ``strict_fp32``) on ``weights`` in groups of at most ``block_tokens``
+    tokens."""
+    reference.strict_fp32()
     out = {"greedy_gap": None, "served_tokens": 0, "requests": len(chosen)}
     if control:
         out["control_greedy_gap"] = None
@@ -87,12 +87,13 @@ def gap_readings(weights: qwen3.Weights, cfg: dict, chosen,
                 seqs.append(torch.tensor(toks, dtype=torch.int64))
                 want.append(torch.arange(n_p - 1, n_p - 1 +
                                          len(r.out_tokens)))
-            ref = qwen3.logits_at(weights, cfg, seqs, want)
-            ctl = qwen3.logits_at(weights, cfg, seqs, want, quant="fp8") \
+            ref = reference.logits_at(weights, cfg, seqs, want)
+            ctl = reference.logits_at(weights, cfg, seqs, want,
+                                      quant="fp8") \
                 if control else [None] * len(group)
             for r, lr, lc in zip(group, ref, ctl):
                 served = torch.tensor(r.out_tokens, dtype=torch.int64,
-                                      device=dev)
+                                      device=lr.device)
                 g = gaps(lr, served)
                 if out["greedy_gap"] is None or \
                         float(g.max()) > out["greedy_gap"]:

@@ -25,7 +25,6 @@ import hb_check
 from hb_cell import Cell, plugin
 from hb_draw import Spec, rng_for
 from hb_trace import Tracer
-from hb_weights import make_weights, model_config, program_params
 
 
 def say(msg: str) -> None:
@@ -78,7 +77,7 @@ def open_session(cell: Cell, params, device):
     from repro_torch import serving
     from repro_torch.models import build_model
     cfg = cell.config
-    model = build_model(model_config(cfg, cfg["torch_dtype"]))
+    model = build_model(cell.arch.model_config(cfg, cfg["torch_dtype"]))
     session = serving.serve(model, params,
                             serving.ServingConfig(**cfg["engine"]),
                             device=device)
@@ -158,11 +157,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              control: bool = False) -> dict:
     """One run; returns the result line's fields (and, with ``control``,
     the control's verdict beside the program's)."""
-    cfg, mix = cell.config, cell.mix
+    cfg, mix, arch = cell.config, cell.mix, cell.arch
     device = torch.device(device)
     dtype = getattr(torch, cfg["torch_dtype"])
-    weights = make_weights(cfg, seed, device, dtype)
-    session = open_session(cell, program_params(weights), device)
+    weights = arch.make_weights(cfg, seed, device, dtype)
+    session = open_session(cell, arch.program_params(weights), device)
     params = mix["params"]
     lead = float(mix["lead_s"])
     traffic = plugin("traffic", mix["kind"]).make(
@@ -227,7 +226,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         if v is not None:
             values[m["name"]] = {"value": v, "unit": m["unit"]}
     t_check = time.perf_counter()
-    readings = hb_check.gap_readings(weights, cfg, chosen, control)
+    readings = hb_check.gap_readings(arch.reference, weights, cfg, chosen,
+                                     control)
     say(f"[check] {len(chosen)} requests, {readings['served_tokens']} "
         f"served tokens, reference {time.perf_counter() - t_check:.1f} s")
     correct, checks = hb_check.judge(readings, failed, cell.limits)

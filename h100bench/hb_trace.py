@@ -1,15 +1,12 @@
 """The traced run's slice: a ``torch.profiler`` trace of a steady stretch
-of the window, and a record of the paged attention calls made in it.
+of the window, and the engine's counters at the slice's two ends.
 
-The recorder wraps the paged attention entry point of the port's kernel
-API (``repro_torch.kernels.ops.paged_attention``) and keeps, for each
-call made while the slice is open, the tensors that say how much work the
-call had: context lengths and occupancy.  It keeps references only, so
-it adds no device sync;
-they are read after the slice closes.  From the trace it takes every
-kernel's interval (device busy time, time by kernel); a sampler of the
-engine thread's stack says what the host was doing while the device
-idled.
+The counters (``session.stats()["totals"]``) say how much work the slice
+held: ``decode_rows`` and ``decode_kv_tokens`` count each decode call's
+occupied rows and their context lengths, whatever kernel the call's
+attention runs.  From the trace it takes every kernel's interval (device
+busy time, time by kernel); a sampler of the engine thread's stack says
+what the host was doing while the device idled.
 """
 
 from __future__ import annotations
@@ -23,7 +20,7 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-import hb_roofline
+import hb_spans
 
 
 @dataclass
@@ -37,52 +34,12 @@ class Slice:
     kernels: List[Tuple[str, float]] = field(default_factory=list)
     device_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
-    paged: List[Tuple[list, int]] = field(default_factory=list)
     stats_a: Optional[dict] = None
     stats_b: Optional[dict] = None
 
     def kernel_s(self, pattern) -> float:
         """Device seconds of the kernels whose names match ``pattern``."""
         return sum(s for n, s in self.kernels if pattern.search(n))
-
-
-class Recorder:
-    """Wraps the port's paged attention entry point while installed."""
-
-    def __init__(self):
-        self.on = False
-        self.paged_calls: list = []
-        self._orig = None
-
-    def install(self) -> None:
-        from repro_torch.kernels import ops
-        paged = ops.paged_attention
-        self._orig = (ops, paged)
-
-        def paged_rec(q, k_pages, v_pages, block_tables, ctx_lens, *a, **kw):
-            if self.on:
-                self.paged_calls.append((ctx_lens, kw.get("occupancy"),
-                                         k_pages.element_size()))
-            return paged(q, k_pages, v_pages, block_tables, ctx_lens, *a,
-                         **kw)
-
-        ops.paged_attention = paged_rec
-
-    def uninstall(self) -> None:
-        if self._orig is not None:
-            ops, paged = self._orig
-            ops.paged_attention = paged
-            self._orig = None
-
-    def calls(self):
-        """The paged calls in host form: [(ctx of occupied rows, bytes an
-        element)]."""
-        paged = []
-        for ctx, occ, elt in self.paged_calls:
-            c = ctx.cpu().tolist()
-            o = occ.cpu().tolist() if occ is not None else [True] * len(c)
-            paged.append(([x for x, k in zip(c, o) if k], elt))
-        return paged
 
 
 def _profiler(**kw):
@@ -145,20 +102,40 @@ class HostSampler:
             self._thread.join()
 
 
+PARK_WAIT_S = 30.0   # longer than any step; past it the slice is cut anyway
+
+
+class _Park:
+    """Handed to a shard as its capture (the hook ``profile()`` uses): the
+    engine thread services it at the start of its next step, under its
+    step lock, and waits there until ``go`` is set.  The hook is set
+    without the step lock, which a busy engine takes again before a
+    waiting thread can."""
+
+    def __init__(self):
+        self.parked = threading.Event()
+        self.go = threading.Event()
+
+    def service(self):
+        self.parked.set()
+        self.go.wait(PARK_WAIT_S)
+        return None
+
+
 class Tracer:
     """``prepare`` (in set-up) starts the profiler in its warm-up state,
     where setting up the device tracing costs what it costs outside the
     window; ``open`` (from the client's loop, ``slice_s`` before the
     window's end) starts recording, and the slice closes ``slice_s``
     seconds later, after the window: stopping the profiler blocks its
-    caller for seconds."""
+    caller for seconds.  Both ends fall between two engine steps, where
+    the engine's counters are read, so the client waits up to a step at
+    each."""
 
     def __init__(self, session, slice_s: float):
         from torch.profiler import schedule
         self.session = session
         self.slice_s = slice_s
-        self.recorder = Recorder()
-        self.recorder.install()
         self.sampler = HostSampler()
         self.prof = _profiler(schedule=schedule(wait=0, warmup=1, active=1,
                                                 repeat=1))
@@ -174,28 +151,49 @@ class Tracer:
     def prepare(self) -> None:
         self._timed("prepare", self.prof.start)
 
+    def _between_steps(self, fn) -> None:
+        """``fn()`` while every shard's engine waits between two steps.
+        A step that makes a decode call waits for the device before it
+        ends, so there the counters and the trace cut the work at the same
+        step: no decode call is half launched or still running."""
+        parks = []
+        for shard in self.session.engine.shards:
+            if hasattr(shard, "_capture"):
+                park = _Park()
+                shard._capture = park
+                parks.append(park)
+        try:
+            for park in parks:
+                park.parked.wait(PARK_WAIT_S)
+            fn()
+        finally:
+            for park in parks:
+                park.go.set()
+
     def open(self):
-        self.slice.stats_a = self.session.stats()["totals"]
-        self._timed("open", self.prof.step)
-        self.recorder.on = True
+        def start():
+            self._timed("open", self.prof.step)
+            self.slice.stats_a = self.session.stats()["totals"]
+            self.t_a = time.perf_counter()
+
+        self._between_steps(start)
         self.sampler.start()
-        self.t_a = time.perf_counter()
         return self.t_a + self.slice_s, self.close
 
     def close(self) -> None:
-        self.t_b = time.perf_counter()
-        self.recorder.on = False
+        def end():
+            self.t_b = time.perf_counter()
+            self.slice.stats_b = self.session.stats()["totals"]
+
+        self._between_steps(end)
         self.sampler.stop()
         self._timed("close", lambda: (self.prof.step(), self.prof.stop()))
-        self.slice.stats_b = self.session.stats()["totals"]
 
     def reduce(self) -> Slice:
-        """Read the trace and the recorded calls (after the window)."""
-        self.recorder.uninstall()
+        """Read the trace (after the window)."""
         sl = self.slice
         sl.t_a, sl.t_b = self.t_a, self.t_b
         sl.window_s = self.t_b - self.t_a
-        sl.paged = self.recorder.calls()
         from torch.autograd import DeviceType
         dev = [(e.time_range.start, e.time_range.end, e.name)
                for e in self.prof.events()
@@ -263,21 +261,10 @@ def _name_gaps(gaps, samples, reach: float) -> List[Tuple[str, float]]:
     return sorted(out.items(), key=lambda kv: -kv[1])[:10]
 
 
-def slice_decode_work(sl: Slice, cfg: dict):
-    """(decode tokens, their attended keys) of the slice's recorded paged
-    calls, per layer: the first layer's calls stand for the step (every
-    layer makes the same call)."""
-    L = cfg["num_hidden_layers"]
-    paged = sl.paged[::L] if L else []
-    return sum(len(c) for c, _ in paged), sum(sum(c) for c, _ in paged)
-
-
-def paged_bytes_ops(sl: Slice, cfg: dict):
-    """Summed (bytes, operations) of the slice's paged calls."""
-    h, hkv, hd = cfg["num_attention_heads"], cfg["num_key_value_heads"], \
-        cfg["head_dim"]
-    nb = fl = 0.0
-    for ctx, elt in sl.paged:
-        b, f = hb_roofline.paged_call(ctx, h, hkv, hd, elt)
-        nb, fl = nb + b, fl + f
-    return nb, fl
+def slice_decode_work(sl: Slice):
+    """(decode rows, their attended keys) in the slice: the engine's
+    ``decode_rows`` and ``decode_kv_tokens`` at the slice's close less at
+    its open.  Each decode call adds its occupied rows and their context
+    lengths, each counting the row's new token."""
+    return (hb_spans.delta(sl, "decode_rows"),
+            hb_spans.delta(sl, "decode_kv_tokens"))

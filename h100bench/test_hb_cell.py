@@ -27,16 +27,17 @@ def test_cell_found_from_files(workload):
 
 
 def test_each_config_is_its_source_unreduced():
+    """The port's registry config equals each config file on every width
+    its architecture names, but the keys the file lists as ``reduced``."""
+    from repro_torch.configs import get_config
     for c in BENCH["configs"]:
         cfg = hb_cell.load_json(hb_cell.ROOT / c["file"])
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
-        from repro_torch.configs import get_config
+        widths = hb_cell.arch_of(cfg).port_widths(cfg)
+        assert widths and not set(widths) & set(cfg["reduced"])
         port = get_config(c["name"])
-        assert (port.n_layers, port.d_model, port.n_heads, port.n_kv_heads,
-                port.head_dim, port.d_ff, port.vocab_size) == (
-            cfg["num_hidden_layers"], cfg["hidden_size"],
-            cfg["num_attention_heads"], cfg["num_key_value_heads"],
-            cfg["head_dim"], cfg["intermediate_size"], cfg["vocab_size"])
+        assert {k: getattr(port, a) for k, a in widths.items()} == \
+            {k: cfg[k] for k in widths}
 
 
 def test_benchmark_file_shape():

@@ -8,9 +8,11 @@ import sys
 import pytest
 import torch
 
+import hb_cell
 import hb_check
-import hb_weights
 from reference import qwen3
+
+ARCH = hb_cell.plugin("archs", "qwen3")
 
 CFG = {"name": "qwen3-tiny", "hidden_size": 64, "intermediate_size": 128,
        "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
@@ -20,9 +22,9 @@ CFG = {"name": "qwen3-tiny", "hidden_size": 64, "intermediate_size": 128,
 
 def test_forward_matches_port_plain_path():
     from repro_torch.models import build_model
-    w = hb_weights.make_weights(CFG, 5, torch.device("cpu"), torch.float32)
-    model = build_model(hb_weights.model_config(CFG, "float32"))
-    params = hb_weights.program_params(w)
+    w = ARCH.make_weights(CFG, 5, torch.device("cpu"), torch.float32)
+    model = build_model(ARCH.model_config(CFG, "float32"))
+    params = ARCH.program_params(w)
     toks = torch.randint(0, 300, (2, 40), generator=torch.Generator()
                          .manual_seed(1))
     with torch.no_grad():
@@ -34,7 +36,7 @@ def test_forward_matches_port_plain_path():
 
 
 def test_fp8_control_moves_the_logits():
-    w = hb_weights.make_weights(CFG, 6, torch.device("cpu"), torch.float32)
+    w = ARCH.make_weights(CFG, 6, torch.device("cpu"), torch.float32)
     toks = [torch.arange(30) % 300]
     with torch.no_grad():
         a = qwen3.logits_at(w, CFG, toks, [torch.arange(30)])[0]
@@ -44,10 +46,10 @@ def test_fp8_control_moves_the_logits():
 
 
 def test_weights_repeat_for_a_seed():
-    a = hb_weights.make_weights(CFG, 2**31 + 3, torch.device("cpu"),
-                                torch.bfloat16)
-    b = hb_weights.make_weights(CFG, 2**31 + 3, torch.device("cpu"),
-                                torch.bfloat16)
+    a = ARCH.make_weights(CFG, 2**31 + 3, torch.device("cpu"),
+                          torch.bfloat16)
+    b = ARCH.make_weights(CFG, 2**31 + 3, torch.device("cpu"),
+                          torch.bfloat16)
     assert torch.equal(a.layers[2]["w_down"], b.layers[2]["w_down"])
     assert torch.equal(a.lm_head, b.lm_head)
     assert a.layers[0]["wq"].dtype == torch.bfloat16
@@ -73,7 +75,7 @@ def test_reference_imports_nothing_of_the_port():
 
 @pytest.mark.cuda
 def test_forward_matches_on_the_card(cuda_device):
-    w = hb_weights.make_weights(CFG, 5, cuda_device, torch.bfloat16)
+    w = ARCH.make_weights(CFG, 5, cuda_device, torch.bfloat16)
     toks = [torch.arange(64) % 300]
     with torch.no_grad():
         ref = qwen3.logits_at(w, CFG, toks, [torch.arange(64)])[0]

@@ -1,12 +1,14 @@
 """The trace reduction's pure parts: kernel names, the class of the paged
-kernels, idle gaps named by the host sampler, and the bytes and
-operations of recorded paged calls."""
+kernels, idle gaps named by the host sampler, the slice's decode work
+from the engine's counters, and its bytes and operations."""
 
 import threading
 import time
 
-import hb_roofline
+import hb_cell
 import hb_trace
+
+ARCH = hb_cell.plugin("archs", "qwen3")
 
 
 def test_short_kernel_names_and_classes():
@@ -24,7 +26,7 @@ def test_short_kernel_names_and_classes():
     for raw, (name, paged) in cases.items():
         got = hb_trace.short(raw)
         assert got == name
-        assert bool(hb_roofline.PAGED.search(got)) == paged
+        assert bool(ARCH.DECODE_KERNELS.search(got)) == paged
 
 
 def test_idle_gaps_named_by_samples():
@@ -63,8 +65,10 @@ def test_paged_bytes_and_operations():
     cfg = {"num_attention_heads": 32, "num_key_value_heads": 8,
            "head_dim": 128, "num_hidden_layers": 2, "hidden_size": 4096,
            "intermediate_size": 12288, "vocab_size": 1000}
-    sl = hb_trace.Slice(paged=[([10, 20], 2), ([10, 20], 2)])
-    nb, fl = hb_trace.paged_bytes_ops(sl, cfg)
+    # one decode call of two rows at contexts 10 and 20, in both layers
+    sl = hb_trace.Slice(stats_a={"decode_rows": 5, "decode_kv_tokens": 70},
+                        stats_b={"decode_rows": 7, "decode_kv_tokens": 100})
+    assert hb_trace.slice_decode_work(sl) == (2, 30)
+    nb, fl = ARCH.decode_attention_work(cfg, 2, 30, 2)
     assert nb == 2 * (30 * 2 * 8 * 128 * 2 + 2 * 2 * 32 * 128 * 2)
     assert fl == 2 * 4 * 32 * 128 * 30
-    assert hb_trace.slice_decode_work(sl, cfg) == (2, 30)
