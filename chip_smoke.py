@@ -36,6 +36,18 @@ Phases, in order; each prints one line and any failure exits non-zero:
    or lanes, fp32 and bf16; padding must leave every page byte as it was;
    kernel, profiler, plain and bound times (no single PyTorch call
    computes any of the three, so no library time);
+4d. the MLA kernels (``mla_attention``, ``mla_latent_store``) against
+   their plain versions at the DeepSeek-V2 cell's shapes, bf16: a decode
+   call of 256 rows x 128 heads over contexts of 300-2,000 keys (mean
+   ~1,150) in a 96,000-page pool, its last 4 rows unoccupied; a prefill
+   chunk of 2,048 lanes (two prompts of 1,024, context = position + 1,
+   the last 48 lanes padding) under the prefill entry names; the latent
+   store of the decode step's 256 lanes and the chunk's 2,048, padding
+   lanes at page -1; unoccupied rows exactly 0, and every pool row but a
+   live lane's target byte-equal to its value before the store; the split
+   count the engine's 256-row shard takes; kernel, profiler, plain and
+   bound times (bytes: the keys' latent rows, the queries and outputs;
+   operations: 128 x 1,088 x 2 a key);
 5. serving TinyLlama-1.1B at full width in fp32 (seeded random weights)
    under the ``chunked`` and ``packed`` schedulers, holding the greedy
    tokens against the model's contiguous-cache decode;
@@ -49,6 +61,14 @@ Phases, in order; each prints one line and any failure exits non-zero:
    one decode call on the live engine launching ``add_rms_norm`` 45
    times (two a layer and the final norm), ``qk_norm_rope_write`` and
    ``silu_mul`` 22 times each;
+6b. serving DeepSeek-V2 in bf16 under ``packed`` at its published widths
+   but 4 layers (1 dense, 3 expert layers of 20 held experts behind a
+   160-wide group-limited router, YaRN): 24 requests, each completes with
+   its 48 tokens, none fails; with the launch counts zeroed just before,
+   ``mla_attention`` launches its decode entry names once a layer for
+   each decode call (decode steps and packed chunks with riders), its
+   prefill names once a layer a packed chunk, and ``mla_latent_store``
+   once a layer for each of both;
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
    as Zamba2 and Hkv = 4 as TinyLlama, D = 64), at DeepSeek-V2's MLA
@@ -254,7 +274,8 @@ Phases, in order; each prints one line and any failure exits non-zero:
    the flash ``wgmma`` row's those of phases 10, 14b, 15b, 16c and the
    bf16 runs of 16d and 17d; the SSD row's, of either variant, those of
    phases 10, 16b and 17d; the three fused kernels' rows (4c's bf16
-   decode layout) phase 6's launches; a row for each other variant of
+   decode layout) phase 6's launches; the MLA rows (4d's decode, prefill
+   and 256-lane store) phase 6b's; a row for each other variant of
    flash and packed, ``flash_attention_tf32x3`` with the ``tf32x3``
    launches of phases 14a, 15a, 16b, 16d, 17b and 17d,
    ``flash_attention_fma`` with
@@ -783,6 +804,152 @@ def phase_fused(torch, timer, dtype, op, layout):
             "profiler_ms": device_ms}
 
 
+# ----------------------------------------------------------- phase 4d
+
+# DeepSeek-V2: heads, latent + rope, latent; the cell's pool, page, table
+MLA_SHAPE = (128, 576, 512)
+MLA_POOL_PAGES, MLA_PAGE, MLA_TABLE = 96000, 8, 320
+MLA_SCALE = 0.11472   # DeepSeek-V2's YaRN score scale
+MLA_KERNELS = {"decode": ("mla_decode_partial_kernel",
+                          "mla_decode_combine_kernel"),
+               "prefill": ("mla_prefill_partial_kernel",
+                           "mla_prefill_combine_kernel"),
+               "store": ("mla_latent_store_kernel",)}
+
+
+def mla_case(torch, layout, seed=21):
+    """One MLA call at the cell's shapes: the decode step's 256 rows
+    (contexts 300-2,000, the last 4 rows unoccupied) or a prefill chunk's
+    2,048 lanes (two prompts of 1,024 lanes, context = position + 1, the
+    last 48 lanes unoccupied).  Returns (q, pool, tables, contexts,
+    occupancy, live keys)."""
+    h, dim, _ = MLA_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = 256 if layout == "decode" else 2048
+    q = torch.randn((n, h, dim), generator=g, device=DEVICE).bfloat16()
+    pool = torch.randn((MLA_POOL_PAGES, MLA_PAGE, dim), generator=g,
+                       device=DEVICE).bfloat16()
+    tables = torch.randint(0, MLA_POOL_PAGES, (n, MLA_TABLE), generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    occ = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    if layout == "decode":
+        ctx = torch.randint(300, 2001, (n,), generator=g, device=DEVICE,
+                            dtype=torch.int32)
+        occ[-4:] = False
+    else:
+        lane = torch.arange(n, device=DEVICE)
+        ctx = (lane % 1024 + 1).to(torch.int32)
+        tables = tables[lane // 1024 * 1024].contiguous()
+        occ[-48:] = False
+    keys = int(ctx[occ].sum())
+    return q, pool, tables, ctx, occ, keys
+
+
+def phase_mla(torch, timer, layout):
+    """The MLA attention kernel against its plain version on the same
+    inputs at one layout: within bf16's tolerance, unoccupied rows exactly
+    0, one launch of the layout's entry names; its ms, profiler ms, plain
+    ms and bound."""
+    from repro_torch.kernels import mla_attention as mla
+    from repro_torch.kernels import ops
+    q, pool, tables, ctx, occ, keys = mla_case(torch, layout)
+    n, h, dim = q.shape
+    rank = MLA_SHAPE[2]
+    prefill = layout == "prefill"
+    splits = ops.mla_splits(256, h, MLA_TABLE * MLA_PAGE, DEVICE)
+
+    def kernel():
+        return ops.mla_attention(q, pool, tables, ctx, scale=MLA_SCALE,
+                                 occupancy=occ, num_splits=splits,
+                                 prefill=prefill)
+
+    def plain():
+        return mla.mla_attention_plain(q, pool, tables, ctx, occ, MLA_SCALE,
+                                       rank)
+    before = mla.launches.of(layout)
+    got = kernel()
+    torch.cuda.synchronize()
+    if mla.launches.of(layout) != before + 1:
+        raise AssertionError(f"mla {layout}: the kernel did not launch")
+    if got[~occ].abs().max() != 0:
+        raise AssertionError(f"mla {layout}: an unoccupied row is not 0")
+    err = close_enough(got, plain(), TOL["bfloat16"])
+    nbytes = keys * dim * 2 + int(occ.sum()) * h * (dim + rank) * 2 + \
+        n * (MLA_TABLE * 4 + 5)
+    flops = keys * h * (dim + rank) * 2
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    return {"name": f"mla_{layout}", "route": "cuda", "variant": layout,
+            "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
+            "replaces": "none (the JAX package attends over a contiguous "
+                        "latent cache with einsums)",
+            "max_abs_err": err, "ms": timer.ms(kernel),
+            "profiler_ms": profiled_ms(torch, timer, kernel,
+                                       MLA_KERNELS[layout]),
+            "plain_ms": timer.ms(plain, iters=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "rows": n, "keys": keys, "splits": splits}
+
+
+def phase_mla_store(torch, timer, layout):
+    """The latent store against its plain version: a lane's latent norm
+    and key rope (interleaved, as DeepSeek-V2 reads it) at its pool row,
+    padding lanes (page -1) writing nothing, every other pool row
+    byte-equal to before; its ms, profiler ms, plain ms and bound."""
+    from repro_torch.kernels import mla_attention as mla
+    from repro_torch.kernels import ops
+    _, dim, rank = MLA_SHAPE
+    n = 256 if layout == "decode" else 2048
+    n_dead = 4 if layout == "decode" else 48
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    kv = torch.randn((n, dim), generator=g, device=DEVICE).bfloat16()
+    gain = (1 + 0.1 * torch.randn((rank,), generator=g, device=DEVICE)
+            ).bfloat16()
+    ang = torch.rand((n, (dim - rank) // 2), generator=g, device=DEVICE) * 6
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    pages = 4096
+    pool0 = torch.randn((pages, MLA_PAGE, dim), generator=g,
+                        device=DEVICE).bfloat16()
+    slots = torch.randperm(pages * MLA_PAGE, generator=g, device=DEVICE)[:n]
+    wr_page, wr_slot = slots // MLA_PAGE, slots % MLA_PAGE
+    wr_page[-n_dead:] = -1
+    args = (kv, gain, cos, sin)
+    kw = dict(interleaved=True, eps=1e-6)
+    want = pool0.clone()
+    mla.mla_latent_store_plain(*args, want, wr_page, wr_slot, True, 1e-6)
+    got = pool0.clone()
+    before = mla.launches.of("latent_store")
+    ops.mla_latent_store(*args, got, wr_page, wr_slot, **kw)
+    torch.cuda.synchronize()
+    if mla.launches.of("latent_store") != before + 1:
+        raise AssertionError(f"mla store {layout}: the kernel did not "
+                             f"launch")
+    live = wr_page >= 0
+    keep = torch.ones((pages, MLA_PAGE), dtype=torch.bool, device=DEVICE)
+    keep[wr_page[live], wr_slot[live]] = False
+    if not torch.equal(got[keep], pool0[keep]):
+        raise AssertionError(f"mla store {layout}: a row outside the live "
+                             f"lanes' targets changed")
+    err = close_enough(got[~keep], want[~keep], TOL["bfloat16"])
+    work = pool0.clone()
+
+    def kernel():
+        ops.mla_latent_store(*args, work, wr_page, wr_slot, **kw)
+
+    def plain():
+        mla.mla_latent_store_plain(*args, work, wr_page, wr_slot, True, 1e-6)
+    nbytes = n * dim * 2 + rank * 2 + n * (dim - rank) * 4 + 16 * n + \
+        int(live.sum()) * dim * 2
+    bound_ms, bound_by = bound(nbytes, 0.0, "bfloat16")
+    return {"name": "mla_latent_store", "route": "cuda", "variant": layout,
+            "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
+            "replaces": "none (XLA fuses the norm, rope and cache write)",
+            "max_abs_err": err, "ms": timer.ms(kernel),
+            "profiler_ms": profiled_ms(torch, timer, kernel,
+                                       MLA_KERNELS["store"]),
+            "plain_ms": timer.ms(plain), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "rows": n}
+
+
 # ------------------------------------------------------- phases 5 and 6
 
 
@@ -974,6 +1141,73 @@ def serve_bf16(torch):
         "fused_block_passes": stats["fused_blocks"],
         "fused_launches_a_decode_step": per_step}
     return summary, launches
+
+
+def serve_deepseek_bf16(torch):
+    """DeepSeek-V2 in bf16 under ``packed``: the published widths, 4
+    layers (1 dense, 3 expert layers holding experts 0-19 of 160), the
+    published routing and YaRN.  Returns (summary, launches per kernel
+    during the run)."""
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_attention as mla
+    from repro_torch.models import build_model
+    from repro_torch.models.config import options
+
+    cfg = options(get_config("deepseek-v2-236b")).replace(
+        n_layers=4, topk_method="group_limited_greedy", n_group=8,
+        topk_group=3, norm_topk_prob=False, routed_scaling_factor=16.0,
+        experts_held=20, first_expert=0, yarn_factor=40.0, yarn_mscale=0.707,
+        yarn_mscale_all_dim=0.707, yarn_original_max_position=4096,
+        yarn_beta_fast=32.0, yarn_beta_slow=1.0, rope_interleaved=True,
+        dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=DEVICE)
+    rng = np.random.RandomState(29)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
+               for n in rng.randint(64, 401, size=24)]
+    n_new = 48
+    session = serving.serve(
+        model, params,
+        serving.ServingConfig(num_pages=4096, max_batch=16, max_seq_len=512,
+                              prefill_chunk_tokens=512, scheduler="packed",
+                              watchdog="off"),
+        device=DEVICE)
+    try:
+        mla.launches.reset()
+        t0 = time.perf_counter()
+        handles = session.submit_many(prompts, max_new_tokens=n_new)
+        outs = [hnd.result(timeout=600) for hnd in handles]
+        wall = time.perf_counter() - t0
+        counts = dict(mla.launches.by_variant)
+        stats = session.stats()["totals"]
+    finally:
+        session.close()
+    n_l = cfg.n_layers
+    calls = stats["decode_steps"] + stats["rider_chunks"]
+    want = {"decode": n_l * calls, "prefill": n_l * stats["packed_chunks"],
+            "latent_store": n_l * (calls + stats["packed_chunks"])}
+    if any(len(o) != n_new for o in outs) or stats["failed"]:
+        raise AssertionError(f"deepseek bf16: not every request completed "
+                             f"with {n_new} tokens ({[len(o) for o in outs]})")
+    if counts != want or not stats["rider_chunks"]:
+        raise AssertionError(
+            f"deepseek bf16: MLA launches {counts} with "
+            f"{stats['decode_steps']} decode steps, {stats['rider_chunks']} "
+            f"rider chunks, {stats['packed_chunks']} packed chunks; want "
+            f"{want}")
+    summary = {
+        "requests": len(prompts), "completed": len(outs),
+        "prompt_tokens": sum(len(p) for p in prompts),
+        "new_tokens": sum(len(o) for o in outs), "wall_s": wall,
+        "decode_steps": stats["decode_steps"],
+        "rider_chunks": stats["rider_chunks"],
+        "packed_chunks": stats["packed_chunks"],
+        "mla_prefill_rows": stats["mla_prefill_rows"],
+        "moe_decode_passes": stats["moe_decode_passes"],
+        "moe_decode_local_pairs": stats["moe_decode_local_pairs"],
+        "launches": counts}
+    return summary, {f"mla_attention:{k}": v for k, v in counts.items()}
 
 
 # ----------------------------------------------------------- phase 11
@@ -3629,10 +3863,10 @@ FLASH_FMA_CASES = [
     (4, 1000, dict(d=96, want_variant="fma")),
 ]
 
-PHASES = ("3", "4", "4b", "4c", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "13b", "13c", "14a", "14b", "15a", "15b", "16a", "16b",
-          "16b-seeds", "16c", "16d", "17a", "17b", "17c", "17d", "18a",
-          "18b", "18c")
+PHASES = ("3", "4", "4b", "4c", "4d", "5", "6", "6b", "7", "8", "9", "10",
+          "11", "12", "13", "13b", "13c", "14a", "14b", "15a", "15b", "16a",
+          "16b", "16b-seeds", "16c", "16d", "17a", "17b", "17c", "17d",
+          "18a", "18b", "18c")
 
 
 def parse_only(argv):
@@ -3769,6 +4003,26 @@ def main(argv) -> int:
                     f"{row['bound_ms']:.5f} ({row['bound_by']}) [{card}] "
                     f"{time.perf_counter() - t0:.1f} s")
 
+    for layout in ("decode", "prefill") if on("4d") else ():
+        t0 = time.perf_counter()
+        row = phase_mla(torch, timer, layout)
+        kernels[("mla", layout)] = row
+        say(f"[4d mla {layout} {row['rows']} rows, {row['keys']} keys, "
+            f"{row['splits']} split(s)] max_abs_err {row['max_abs_err']:.3g}"
+            f", unoccupied rows 0; ms {row['ms']:.4f} profiler "
+            f"{fmt_ms(row['profiler_ms'])} plain {row['plain_ms']:.4f} "
+            f"bound {row['bound_ms']:.5f} ({row['bound_by']}) [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+    for layout in ("decode", "prefill") if on("4d") else ():
+        t0 = time.perf_counter()
+        row = phase_mla_store(torch, timer, layout)
+        kernels[("mla", "store", layout)] = row
+        say(f"[4d mla_latent_store {layout} {row['rows']} lanes] max_abs_err "
+            f"{row['max_abs_err']:.3g}, page -1 wrote nothing; ms "
+            f"{row['ms']:.4f} profiler {fmt_ms(row['profiler_ms'])} plain "
+            f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
+            f"({row['bound_by']}) [{card}] {time.perf_counter() - t0:.1f} s")
+
     if on("5"):
         t0 = time.perf_counter()
         for line in serve_fp32(torch):
@@ -3780,6 +4034,13 @@ def main(argv) -> int:
         summary, path_launches = serve_bf16(torch)
         add(path_launches)
         say(f"[6 serve bf16] {json.dumps(summary)} [{card}] "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    if on("6b"):
+        t0 = time.perf_counter()
+        summary, path_launches = serve_deepseek_bf16(torch)
+        add(path_launches)
+        say(f"[6b serve deepseek-v2 bf16] {json.dumps(summary)} [{card}] "
             f"{time.perf_counter() - t0:.1f} s")
 
     flash_cases = [(dtype, hkv, s, {}) for dtype in ("float32", "bfloat16")
@@ -4015,11 +4276,15 @@ def main(argv) -> int:
                  "flash_attention:fma"),
                 (("ssd", "bfloat16", 128, 1024), "ssd_scan", "ssd_scan"),
                 *((("fused", "bfloat16", op, "decode"), op,
-                   f"fused_block:{op}") for op in FUSED_OPS)):
+                   f"fused_block:{op}") for op in FUSED_OPS),
+                (("mla", "decode"), "mla_decode", "mla_attention:decode"),
+                (("mla", "prefill"), "mla_prefill", "mla_attention:prefill"),
+                (("mla", "store", "decode"), "mla_latent_store",
+                 "mla_attention:latent_store")):
             row = {k: v for k, v in kernels[key].items()
                    if k not in ("errs", "splits", "no_keys_profiler_ms",
                                 "long_row", "shares", "fma", "rows",
-                                "ms_by_rows")}
+                                "ms_by_rows", "keys")}
             row["name"] = name
             row["launches"] = launches.get(count, 0)
             if not row["launches"]:

@@ -11,6 +11,7 @@ import torch
 
 from . import build, ref
 from .flash_attention import flash_attention
+from .mla_attention import mla_attention, mla_latent_store, mla_splits
 from .fused_block import add_rms_norm, qk_norm_rope_write, silu_mul
 from .packed_prefill import packed_prefill_attention
 from .paged_attention import paged_attention, paged_splits
@@ -18,7 +19,8 @@ from .ssd_scan import ssd_scan as ssd
 
 __all__ = ["flash_attention", "paged_attention", "paged_splits",
            "packed_prefill_attention", "ssd", "add_rms_norm",
-           "qk_norm_rope_write", "silu_mul", "sample_tokens",
+           "qk_norm_rope_write", "silu_mul", "mla_attention",
+           "mla_latent_store", "mla_splits", "sample_tokens",
            "spec_verify_rows", "prepare"]
 
 

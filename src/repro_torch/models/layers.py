@@ -70,6 +70,47 @@ def rope_angles(positions, head_dim: int, theta: float = 10000.0):
     return positions[..., None].float() * inv_freq
 
 
+def yarn_get_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention-magnitude factor 0.1 m ln(s) + 1 (1 for s <= 1):
+    DeepSeek-V2's ``yarn_get_mscale``."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_correction_range(beta_fast: float, beta_slow: float, dim: int,
+                          theta: float, original_max_position: int):
+    """The rotary pairs (low, high) between which YaRN blends the
+    interpolated and the original frequencies: the pairs that turn
+    ``beta_fast`` and ``beta_slow`` times over the original context,
+    floored and ceiled, clipped to [0, dim - 1]."""
+    def pair(rotations):
+        return dim * math.log(original_max_position /
+                              (rotations * 2 * math.pi)) / \
+            (2 * math.log(theta))
+    return max(math.floor(pair(beta_fast)), 0), \
+        min(math.ceil(pair(beta_slow)), dim - 1)
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float,
+                  original_max_position: int, beta_fast: float,
+                  beta_slow: float, device=None):
+    """(dim // 2,) fp32 YaRN frequencies (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): each pair's original frequency
+    (extrapolation) below the correction range, the frequency divided by
+    ``factor`` (interpolation) above it, and a linear ramp between."""
+    base = theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device) / dim)
+    low, high = yarn_correction_range(beta_fast, beta_slow, dim, theta,
+                                      original_max_position)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) -
+             low) / (high - low)).clamp(0, 1)
+    extra = 1.0 - ramp
+    return (1.0 / (factor * base)) * (1 - extra) + (1.0 / base) * extra
+
+
 def mrope_angles(positions_thw, head_dim: int, sections,
                  theta: float = 1000000.0):
     """Qwen2-VL M-RoPE: positions (..., S, 3) as [t, h, w] → (..., S,

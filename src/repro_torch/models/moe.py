@@ -14,7 +14,17 @@ Under a mesh the experts are split as the reference's rule table splits
 them (``"experts"`` → ``model``, or ``(data, model)`` under ``ep_wide``):
 each rank runs :func:`expert_partial` for its own experts on its tokens
 (:func:`_moe_sharded`), with no buffer rows for experts it does not hold,
-and the routed output is a partial sum over the expert split."""
+and the routed output is a partial sum over the expert split.
+
+:func:`dropless_moe` is the serving engine's expert layer, beside the
+capacity path: no (token, choice) is ever dropped, so a row's output does
+not depend on its batch.  It routes over all ``n_experts`` by the config's
+rule (:func:`route_dropless`: softmax scores in fp32, plain or
+group-limited greedy top-k, renormalised or scaled) and computes the part
+that the experts this device holds (``first_expert`` ..  ``first_expert
++ experts_held - 1``) give: on the card as three grouped products over
+the (token, choice) pairs permuted by expert, with static shapes and no
+host sync; on the CPU as a plain loop over the held experts."""
 
 from __future__ import annotations
 
@@ -24,8 +34,10 @@ import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 
+from ..kernels import ops
 from ..parallel.dtensor_ops import PARTIAL, is_dtensor, local_rank, \
     run_local
+from .config import options
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -151,3 +163,96 @@ def _moe_sharded(p, cfg, x):
         (tokens, [None] * mesh.ndim, experts, experts, experts), (out,),
         mesh)
     return y.redistribute(mesh, x.placements)
+
+
+def route_dropless(router, cfg, xf):
+    """Routing of xf (T, D) over all ``cfg.n_experts`` experts → (weights
+    (T, k) fp32, experts (T, k)): softmax of the fp32 router logits; with
+    ``topk_method`` "group_limited_greedy" only the ``topk_group`` of
+    ``n_group`` consecutive expert groups with the best single score
+    compete (DeepSeek-V2's ``MoEGate``); the chosen weights are
+    renormalised when ``norm_topk_prob`` (and k > 1), else multiplied by
+    ``routed_scaling_factor``."""
+    cfg = options(cfg)
+    t = xf.shape[0]
+    scores = torch.softmax(xf.float() @ router.float(), dim=-1)
+    if cfg.topk_method == "group_limited_greedy":
+        groups = scores.view(t, cfg.n_group, -1).amax(dim=-1)
+        keep = torch.zeros_like(groups).scatter_(
+            1, torch.topk(groups, cfg.topk_group, dim=-1).indices, 1.0)
+        keep = keep.bool()[:, :, None].expand(
+            t, cfg.n_group, cfg.n_experts // cfg.n_group).reshape(t, -1)
+        scores = scores.masked_fill(~keep, 0.0)
+    elif cfg.topk_method != "greedy":
+        raise ValueError(f"unknown topk_method {cfg.topk_method!r}")
+    topw, tope = torch.topk(scores, cfg.top_k, dim=-1)
+    if cfg.top_k > 1 and cfg.norm_topk_prob:
+        topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-20)
+    else:
+        topw = topw * cfg.routed_scaling_factor
+    return topw, tope
+
+
+def _held_plain(p, xf, topw, local, held):
+    """The held experts' part on the CPU: one SwiGLU per expert over the
+    pairs routed to it, weighted and summed per token in fp32."""
+    y = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
+    for j in range(p.wi_gate.shape[0]):
+        tok, choice = torch.nonzero(held & (local == j), as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        h = xf[tok]
+        a = F.silu(h @ p.wi_gate[j]) * (h @ p.wi_up[j])
+        out = (a @ p.wo[j]).float() * topw[tok, choice, None]
+        y.index_add_(0, tok, out)
+    return y
+
+
+def _held_grouped(p, xf, topw, local, held):
+    """The held experts' part on the card: the (token, choice) pairs
+    sorted by held expert (the rest last) into a (T k, D) buffer, three
+    grouped products over the per-expert row offsets (``torch._grouped_mm``;
+    rows past the last offset are never read back), SiLU * mul through the
+    fused kernel, then each pair's row gathered back to its (token,
+    choice) and the weighted pairs summed per token in fp32.  Every shape
+    is static and nothing waits for the device."""
+    t, k = local.shape
+    e_l = p.wi_gate.shape[0]
+    key = torch.where(held, local, e_l).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    # each held expert's end row: searchsorted, as bincount would wait for
+    # the device to size its output
+    offs = torch.searchsorted(key[order], torch.arange(
+        e_l, device=key.device), right=True).to(torch.int32)
+    xs = xf[order // k]
+    a = ops.silu_mul(torch._grouped_mm(xs, p.wi_gate, offs=offs),
+                     torch._grouped_mm(xs, p.wi_up, offs=offs))
+    ys = torch._grouped_mm(a, p.wo, offs=offs)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel(), device=order.device)
+    yp = ys[back].view(t, k, -1).float()
+    yp = torch.where(held[..., None], yp * topw[..., None], 0.0)
+    return yp.sum(dim=1)
+
+
+def dropless_moe(p, cfg, xf, live=None, pairs=None):
+    """The dropless expert layer on xf (T, D): the routed part that the
+    held experts (``p.wi_gate`` / ``p.wi_up`` (E_l, D, F), ``p.wo`` (E_l,
+    F, D), experts ``cfg.first_expert`` ..) give, plus the shared experts
+    once.  ``live`` (T,) bool marks real rows (padding rows route nowhere);
+    ``pairs``, a device int64 scalar, is incremented by the number of
+    (token, choice) pairs routed to held experts (no sync).  Returns (T, D)
+    in xf's dtype."""
+    topw, tope = route_dropless(p.router, cfg, xf)
+    local = tope - options(cfg).first_expert
+    held = (local >= 0) & (local < p.wi_gate.shape[0])
+    if live is not None:
+        held = held & live[:, None]
+    if pairs is not None:
+        pairs += held.sum()
+    fn = _held_grouped if xf.is_cuda else _held_plain
+    y = fn(p, xf, topw, local, held).to(xf.dtype)
+    if not p.shared:
+        return y
+    return y + ops.silu_mul(xf @ p.shared_wi_gate, xf @ p.shared_wi_up) @ \
+        p.shared_wo

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .config import options
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -348,10 +350,12 @@ def _init_mla(ini: _Init, cfg) -> MLAParams:
 
 def _init_moe(ini: _Init, cfg) -> MoEFFNParams:
     """As the reference: every leaf fan-in scaled by its FIRST dimension,
-    so the (E, ., .) expert weights by 1 / sqrt(E)."""
+    so the (E, ., .) expert weights by 1 / sqrt(E).  The router has all
+    ``n_experts`` outputs, the expert weights the experts held."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
-    leaves = dict(router=ini.normal(d, e), wi_gate=ini.normal(e, d, f),
-                  wi_up=ini.normal(e, d, f), wo=ini.normal(e, f, d))
+    held = options(cfg).n_experts_held
+    leaves = dict(router=ini.normal(d, e), wi_gate=ini.normal(held, d, f),
+                  wi_up=ini.normal(held, d, f), wo=ini.normal(held, f, d))
     if cfg.n_shared_experts:
         sd = f * cfg.n_shared_experts
         leaves.update(shared_wi_gate=ini.normal(d, sd),

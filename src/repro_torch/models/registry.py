@@ -35,7 +35,8 @@ def derive_draft(model, params, spec_draft: str = "auto",
     list holds the target's first blocks), so the draft costs no extra
     parameter memory.  Returns ``(draft_model, draft_params)``.
 
-    Dense family only, like the serving engine itself; targets that
+    Dense family only (the engine's latent pool takes no speculative
+    decoding); targets that
     front-load non-attention layers (``first_dense_layers``) are rejected
     rather than sliced into a different architecture."""
     cfg = model.cfg

@@ -31,6 +31,9 @@ the reference's):
 * The KV pool is a pair of ``(L, num_pages, page, Hkv, D)`` tensors on the
   engine's device, updated IN PLACE (the reference donates its buffers to
   ``jit``).  The device functions are plain methods; PyTorch runs eagerly.
+  An MLA model (DeepSeek-V2) keeps one latent pool ``(L, num_pages, page,
+  rank + rope)`` in their place: each token's RMS-normed latent and its
+  roped key dimensions, read by every head (``kernels/mla_attention.py``).
 * Masked writes: every lane carries a write target, and a padding lane
   or an unoccupied row carries page -1, which writes nothing: it never
   touches a page, shared or recycled (the reference scatters them out of
@@ -98,7 +101,12 @@ architecture decision (DESIGN.md §11).
 shim mapping the old kwargs onto :class:`ServingConfig`; new code goes
 through :func:`repro_torch.serving.serve`.
 
-Dense-family models only (engine v1).
+It serves dense decoders (GQA attention, SwiGLU FFN) and MLA decoders
+(DeepSeek-V2: latent attention over the latent pool, a dense FFN or the
+dropless expert layer of the experts this device holds,
+``models/moe.py`` ``dropless_moe``).  A latent pool takes no speculative
+decoding, host swap tier or live migration: the engine refuses them when
+it is made.
 """
 
 from __future__ import annotations
@@ -117,8 +125,11 @@ import torch
 from ..core.smr.base import SmrScheme
 from ..kernels import ops
 from ..kernels import ref as kref
+from ..models.config import options
 from ..models.layers import apply_rope, rms_norm, rope_angles
-from ..models.params import DTYPES, resolve_device
+from ..models.mla import rope_table, rotate, softmax_scale
+from ..models.moe import dropless_moe
+from ..models.params import DTYPES, layer_kinds, resolve_device
 from ..models.registry import derive_draft
 from ..models.transformer import _qkv, ffn_apply
 from ..runtime.block_pool import BlockPool, PageNode
@@ -284,9 +295,20 @@ class _ShardEngine:
                  device=None, smr: Optional[SmrScheme] = None,
                  shard_id: int = 0, prefix_traversal=None):
         cfg = model.cfg
-        if cfg.family != "dense":
-            raise ValueError(f"engine v1 serves dense models, got family "
-                             f"{cfg.family!r}")
+        self.mla = cfg.use_mla
+        if cfg.family != "dense" and not (cfg.family == "moe" and self.mla):
+            raise ValueError(f"the engine serves dense and MLA models, got "
+                             f"{cfg.name!r} (family {cfg.family!r})")
+        if self.mla:
+            unsupported = [name for name, on in (
+                ("speculative decoding (spec_k)", config.spec_k > 0),
+                ("the host swap tier (swap_bytes)", config.swap_bytes > 0),
+                ("live migration (watchdog 'migrate')",
+                 config.watchdog == "migrate")) if on]
+            if unsupported:
+                raise ValueError(f"{cfg.name!r} serves from a latent pool, "
+                                 f"which takes no " +
+                                 ", ".join(unsupported))
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         if params.embed.device != self.device or \
@@ -321,18 +343,23 @@ class _ShardEngine:
         # a step (where the build would hold the step lock)
         ops.prepare(self.device)
         L = cfg.n_layers
-        kv = (L, config.num_pages, config.page_size, cfg.n_kv_heads,
-              cfg.head_dim)
-        # the paged KV pool, written in place by every device function
-        self.k_pages = torch.zeros(kv, dtype=self.dtype, device=self.device)
-        self.v_pages = torch.zeros(kv, dtype=self.dtype, device=self.device)
-        # the paged kernel's split count of the decode step (max_batch
-        # rows), passed to every paged call: the spec verify runs its lanes
-        # as paged rows with the same splits, so each lane sums a row in
-        # the decode step's order
-        self.decode_splits = ops.paged_splits(
-            self.max_batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            self.max_pages, self.dtype, self.device)
+        if self.mla:
+            self._init_latent(params)
+        else:
+            kv = (L, config.num_pages, config.page_size, cfg.n_kv_heads,
+                  cfg.head_dim)
+            # the paged KV pool, written in place by every device function
+            self.k_pages = torch.zeros(kv, dtype=self.dtype,
+                                       device=self.device)
+            self.v_pages = torch.zeros(kv, dtype=self.dtype,
+                                       device=self.device)
+            # the paged kernel's split count of the decode step (max_batch
+            # rows), passed to every paged call: the spec verify runs its
+            # lanes as paged rows with the same splits, so each lane sums a
+            # row in the decode step's order
+            self.decode_splits = ops.paged_splits(
+                self.max_batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                self.max_pages, self.dtype, self.device)
         self._waiting = self.admission.new_queue()
         self._wlock = threading.Lock()
         # scheduler states: _prefilling (pages reserved, prompt chunks
@@ -401,6 +428,12 @@ class _ShardEngine:
         # kernels (a CUDA engine) and through their plain versions
         self.fused_blocks = 0
         self.eager_blocks = 0
+        # MLA models: prefill lanes through the MLA kernel and the keys
+        # they attend; expert-layer passes of the decode calls (their
+        # routed pairs: _moe_pairs)
+        self.mla_prefill_rows = 0
+        self.mla_prefill_keys = 0
+        self.moe_decode_passes = 0
         # ITL gap accounting: intervals spanning a preemption park or a
         # migration stall, excluded from itl() and the SLO observation
         self.n_gap_intervals = 0
@@ -610,6 +643,59 @@ class _ShardEngine:
         self.n_migrated_in += 1
         return req
 
+    def _init_latent(self, params) -> None:
+        """An MLA model's latent pool, its layers' block kinds, the absorbed
+        W_uk / W_uv views and the decode step's split count."""
+        cfg, config = self.cfg, self.config
+        h, rank = cfg.n_heads, cfg.kv_lora_rank
+        self.latent_pages = torch.zeros(
+            (cfg.n_layers, config.num_pages, config.page_size,
+             rank + cfg.rope_head_dim), dtype=self.dtype, device=self.device)
+        self.k_pages = self.v_pages = None
+        self.blocks = list(params.head_blocks) + list(params.blocks)
+        self.kinds = layer_kinds(cfg)
+        self.n_moe_layers = sum(k.endswith("moe") for k in self.kinds)
+        # (H, nope, rank) and (H, rank, v): views of w_uk / w_uv, no copy
+        self.absorb = [
+            (blk.attn.w_uk.view(rank, h, cfg.nope_head_dim).permute(1, 2, 0),
+             blk.attn.w_uv.view(rank, h, cfg.v_head_dim).permute(1, 0, 2))
+            for blk in self.blocks]
+        self.mla_scale = softmax_scale(cfg)
+        # (token, choice) pairs the decode calls routed to the experts held
+        # here, summed on the device (stats() reads it)
+        self._moe_pairs = torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+        # every MLA call (decode rows, prefill lanes) takes the decode
+        # step's splits, so a position is summed in one order
+        self.decode_splits = ops.mla_splits(
+            self.max_batch, h, self.max_pages * self.page_size, self.device)
+
+    def _latent_attend(self, tables, ctx, occupancy, prefill: bool):
+        """``attend(i, q)`` of an MLA device function: the MLA kernel over
+        layer i's latent pages for rows (tables, ctx, occupancy)."""
+        def attend(i, q):
+            return ops.mla_attention(
+                q, self.latent_pages[i], tables, ctx, occupancy=occupancy,
+                scale=self.mla_scale, rank=self.cfg.kv_lora_rank,
+                num_splits=self.decode_splits, prefill=prefill)
+        return attend
+
+    def _lane_attend(self, page_rows, seg_ids, positions):
+        """A prefill chunk's ``attend``: one MLA row per lane (its segment's
+        block run, context = position + 1; padding lanes unoccupied)."""
+        return self._latent_attend(
+            page_rows[seg_ids.clamp(min=0).long()].contiguous(),
+            (positions + 1).to(torch.int32), seg_ids >= 0, prefill=True)
+
+    def _count_lanes(self, seg, pos) -> None:
+        """Count a prefill chunk's live lanes (host arrays) and the keys
+        they attend, for an MLA model."""
+        if self.mla:
+            live = seg >= 0
+            self.mla_prefill_rows += int(live.sum())
+            self.mla_prefill_keys += int((pos[live].astype(np.int64) +
+                                          1).sum())
+
     # ------------------------------------------------------------- device fns
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device.  On the card the copy
@@ -625,12 +711,15 @@ class _ShardEngine:
 
     def _rope(self, positions):
         """The call's rope table: (cos, sin) of the angles at ``positions``
-        (..., ) → two (..., D/2) fp32 tensors, made once for every layer."""
+        (..., ) → two (..., D/2) fp32 tensors, made once for every layer
+        (an MLA model's: its rope head's, YaRN where the config has it)."""
+        if self.mla:
+            return rope_table(self.cfg, positions)
         angles = rope_angles(positions, self.cfg.head_dim,
                              self.cfg.rope_theta)
         return torch.cos(angles), torch.sin(angles)
 
-    def _layers(self, x, rope, wr_page, wr_slot, attend):
+    def _layers(self, x, rope, wr_page, wr_slot, attend, pairs=None):
         """Run every decoder block over x (B, S, d).  ``rope`` is the call's
         (cos, sin) table (:meth:`_rope`); each of the B * S lanes stores its
         K/V into the pool at (``wr_page``, ``wr_slot``), (B * S,) int64, a
@@ -642,7 +731,12 @@ class _ShardEngine:
         (``kernels/fused_block.py``): add + RMSNorm at ``ln1`` (folding in
         the previous block's FFN output) and at ``ln2`` (the attention
         output), q/k RMSNorm + RoPE + the K/V store, SiLU * mul.  On a CPU
-        tensor each is the plain chain, op for op."""
+        tensor each is the plain chain, op for op.
+
+        An MLA model runs :meth:`_mla_layers` (``pairs``: the decode
+        call's counter of routed pairs, or None)."""
+        if self.mla:
+            return self._mla_layers(x, rope, wr_page, wr_slot, attend, pairs)
         cfg = self.cfg
         b, s, _ = x.shape
         heads = (b, s, cfg.n_heads, cfg.head_dim)
@@ -666,6 +760,54 @@ class _ShardEngine:
         else:
             self.eager_blocks += len(self.params.blocks)
         return x + r
+
+    def _mla_layers(self, x, rope, wr_page, wr_slot, attend, pairs):
+        """Every MLA decoder block over x (B, S, d), as :meth:`_layers`:
+        q_a → RMSNorm → q_b; kv_a → the latent RMSNorm and the key rope
+        stored into the latent pool (``ops.mla_latent_store``: page -1
+        writes nothing); q_nope absorbed through W_uk, q_rope roped;
+        ``attend(i, q)`` over the latent pages (B S, H, rank); W_uv, o_proj.
+        The FFN is the dense SwiGLU or, in an expert layer, the dropless
+        expert layer of the experts held here (lanes with page -1 route
+        nowhere).  Spans ``mla.attend`` and ``moe.dispatch`` time each
+        attention's and each expert pass's host side."""
+        cfg = self.cfg
+        interleaved = options(cfg).rope_interleaved
+        b, s, d = x.shape
+        n = b * s
+        h, nope = cfg.n_heads, cfg.nope_head_dim
+        cos, sin = (t.reshape(n, -1) for t in rope)
+        live = wr_page >= 0
+        x = x.reshape(n, d)
+        r = None
+        for i, (blk, kind) in enumerate(zip(self.blocks, self.kinds)):
+            a, f = blk.attn, blk.ffn
+            uk, uv = self.absorb[i]
+            x, hn = ops.add_rms_norm(x, r, blk.ln1)
+            with self.spans.span("mla.attend"):
+                q = ops.add_rms_norm(hn @ a.w_dq, None, a.q_norm)[1] @ a.w_uq
+                q = q.view(n, h, -1)
+                ops.mla_latent_store(hn @ a.w_dkv, a.kv_norm, cos, sin,
+                                     self.latent_pages[i], wr_page, wr_slot,
+                                     interleaved=interleaved)
+                q = torch.cat([
+                    torch.bmm(q[..., :nope].transpose(0, 1), uk)
+                    .transpose(0, 1),
+                    rotate(q[..., nope:], cos, sin, interleaved)],
+                    dim=-1)
+                o = torch.bmm(attend(i, q).transpose(0, 1), uv)
+                o = o.transpose(0, 1).reshape(n, -1) @ a.wo
+            x, hn = ops.add_rms_norm(x, o, blk.ln2)
+            if kind.endswith("moe"):
+                with self.spans.span("moe.dispatch"):
+                    r = dropless_moe(f, cfg, hn, live, pairs)
+            else:
+                r = ops.silu_mul(hn @ f.wi_gate, hn @ f.wi_up) @ f.wo
+        if x.is_cuda:
+            self.fused_blocks += len(self.blocks)
+        else:
+            self.eager_blocks += len(self.blocks)
+        return (x + r).view(b, s, d)
 
     def _logits(self, h):
         """Final norm + LM head on the rows that emit, h (N, d) → (N, V)."""
@@ -702,12 +844,15 @@ class _ShardEngine:
         page_rows = self._to_dev(page_row[None])
         seg_ctx = self._to_dev(np.asarray([start + n_valid], np.int32))
         x = self.params.embed[self._to_dev(tokens.astype(np.int64))][None]
+        self._count_lanes(seg, pos)
 
         def attend(i, q):
             return ops.packed_prefill_attention(
                 q[0], self.k_pages[i], self.v_pages[i], page_rows, seg_ids,
                 positions, seg_ctx)
 
+        if self.mla:
+            attend = self._lane_attend(page_rows, seg_ids, positions)
         x = self._layers(x, self._rope(positions[None]),
                          self._to_dev(wr_page),
                          self._to_dev((pos % self.page_size).astype(np.int64)),
@@ -740,6 +885,8 @@ class _ShardEngine:
                 q[0], self.k_pages[i], self.v_pages[i], page_rows, seg_ids,
                 positions, seg_ctx)
 
+        if self.mla:
+            attend = self._lane_attend(page_rows, seg_ids, positions)
         x = self._layers(x, self._rope(positions[None]), wr_page, wr_slot,
                          attend)
         # one lm_head row per SEGMENT (S rows), not per lane
@@ -755,6 +902,7 @@ class _ShardEngine:
         zero, so padding needs no reserved scratch page.  Returns (B, V)
         logits."""
         x = self.params.embed[tokens][:, None, :]         # (B, 1, d)
+        pairs = None
 
         def attend(i, q):
             return ops.paged_attention(q[:, 0], self.k_pages[i],
@@ -762,8 +910,13 @@ class _ShardEngine:
                                        ctx_lens, occupancy=occ,
                                        num_splits=self.decode_splits)
 
+        if self.mla:
+            attend = self._latent_attend(block_tables, ctx_lens, occ,
+                                         prefill=False)
+            pairs = self._moe_pairs
+            self.moe_decode_passes += self.n_moe_layers
         x = self._layers(x, self._rope(positions[:, None]), wr_page, wr_slot,
-                         attend)
+                         attend, pairs)
         return self._logits(x[:, 0])
 
     @staticmethod
@@ -1505,6 +1658,7 @@ class _ShardEngine:
                 self.packed_segments += len(members)
                 self.prefill_tokens_wasted += chunk - lane
                 self.prefill_tokens_computed += lane
+                self._count_lanes(segs, poss)
                 self._fault_dispatch()
                 # power-of-2 segment bucket: pay for the segments actually
                 # present, not max_batch (seg ids are compact, so a prefix
@@ -2008,6 +2162,11 @@ class _ShardEngine:
             "decode_kv_tokens": self.decode_kv_tokens,
             "fused_blocks": self.fused_blocks,
             "eager_blocks": self.eager_blocks,
+            "mla_prefill_rows": self.mla_prefill_rows,
+            "mla_prefill_keys": self.mla_prefill_keys,
+            "moe_decode_passes": self.moe_decode_passes,
+            "moe_decode_local_pairs": (int(self._moe_pairs)
+                                       if self.moe_decode_passes else 0),
             # {span name: (count, seconds)} (serving/spans.py)
             "spans": spans,
         }

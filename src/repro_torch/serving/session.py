@@ -522,7 +522,9 @@ class ServingSession:
         }
         # the serving loop's counters and span totals (serving/spans.py)
         for key in ("prefill_tokens_computed", "decode_rows",
-                    "decode_kv_tokens", "fused_blocks", "eager_blocks"):
+                    "decode_kv_tokens", "fused_blocks", "eager_blocks",
+                    "mla_prefill_rows", "mla_prefill_keys",
+                    "moe_decode_passes", "moe_decode_local_pairs"):
             totals[key] = sum(s[key] for s in shards)
         for s in shards:
             for name, (n, sec) in s["spans"].items():
