@@ -137,6 +137,7 @@ from ..runtime.prefix_cache import PrefixCache
 from ..runtime.swap import SwapArena, SwapArenaFullError, SwapChecksumError
 from .config import ServingConfig
 from .faults import build_fault_line
+from .lru_index import BatchedLruEviction
 from .policies import as_admission_policy, as_scheduler_policy
 from .sampling import as_sampling_policy
 from .spans import SpanRecorder
@@ -336,7 +337,10 @@ class _ShardEngine:
             # TraversalPolicy instance (config carries names only)
             traversal=(prefix_traversal if prefix_traversal is not None
                        else config.prefix_traversal),
-            eviction=config.eviction)
+            # the copied LRU index with its stamps entered in batches, so
+            # its NM-tree stays shallow (serving/lru_index.py)
+            eviction=(BatchedLruEviction() if config.eviction == "lru"
+                      else config.eviction))
         self.admission = as_admission_policy(config.admission)
         self.scheduler = as_scheduler_policy(config.scheduler)
         # the kernels build here, on the constructing thread, never inside
@@ -2167,6 +2171,12 @@ class _ShardEngine:
             "moe_decode_passes": self.moe_decode_passes,
             "moe_decode_local_pairs": (int(self._moe_pairs)
                                        if self.moe_decode_passes else 0),
+            # batches of recency stamps the LRU index took, and their
+            # stamps (0 under the other eviction policies)
+            "lru_flushes": getattr(self.prefix_cache.eviction,
+                                   "n_flushes", 0),
+            "lru_flushed_stamps": getattr(self.prefix_cache.eviction,
+                                          "n_flushed_stamps", 0),
             # {span name: (count, seconds)} (serving/spans.py)
             "spans": spans,
         }

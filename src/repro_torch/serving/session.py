@@ -524,7 +524,8 @@ class ServingSession:
         for key in ("prefill_tokens_computed", "decode_rows",
                     "decode_kv_tokens", "fused_blocks", "eager_blocks",
                     "mla_prefill_rows", "mla_prefill_keys",
-                    "moe_decode_passes", "moe_decode_local_pairs"):
+                    "moe_decode_passes", "moe_decode_local_pairs",
+                    "lru_flushes", "lru_flushed_stamps"):
             totals[key] = sum(s[key] for s in shards)
         for s in shards:
             for name, (n, sec) in s["spans"].items():
