@@ -1449,38 +1449,42 @@ LANE_OPS = ("x", "rms_norm", "q_proj", "k_proj", "v_proj", "attention",
             "o_proj", "ffn")
 
 
-def traced_layers(shard, rec, keep=lambda x: True):
-    """A copy of the shard's ``_layers`` loop, op for op, that records row
-    0, lane 0 of every op's output in every layer into ``rec`` (for the
-    calls whose input ``keep`` accepts): the decode step's row 0, or the
-    verify chunk's lane 0 (row 0's x_last)."""
+def traced_layers(stack, rec, keep=lambda x: True):
+    """A copy of ``DenseStack.layers`` (``serving/paged_stack.py``), op
+    for op, that records lane 0 of every op's output in every layer into
+    ``rec`` (for the calls whose lanes ``keep`` accepts): the decode
+    step's row 0, or the verify chunk's lane 0 (row 0's x_last).  Set it
+    as the shard's ``stack.layers``."""
+    import torch
     from repro_torch.kernels import ops
+    from repro_torch.models.layers import rope_angles
 
-    def layers(x, rope, wr_page, wr_slot, attend):
-        cfg = shard.cfg
-        b, s, _ = x.shape
+    def layers(x, positions, wr_page, wr_slot, attend):
+        cfg = stack.cfg
+        n = x.shape[0]
         record = keep(x)
-        cos, sin = rope
+        angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = torch.cos(angles), torch.sin(angles)
         r = None
-        for i, blk in enumerate(shard.params.blocks):
+        for i, blk in enumerate(stack.params.blocks):
             a, f = blk.attn, blk.ffn
             x, h = ops.add_rms_norm(x, r, blk.ln1)
-            q = (h @ a.wq).view(b, s, cfg.n_heads, cfg.head_dim)
-            k = (h @ a.wk).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-            v = (h @ a.wv).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+            q = (h @ a.wq).view(n, cfg.n_heads, cfg.head_dim)
+            k = (h @ a.wk).view(n, cfg.n_kv_heads, cfg.head_dim)
+            v = (h @ a.wv).view(n, cfg.n_kv_heads, cfg.head_dim)
             step = {"x": x, "rms_norm": h, "q_proj": q, "k_proj": k,
                     "v_proj": v}
             q = ops.qk_norm_rope_write(
                 q, k, v, a.q_norm if cfg.qk_norm else None,
                 a.k_norm if cfg.qk_norm else None, cos, sin,
-                shard.k_pages[i], shard.v_pages[i], wr_page, wr_slot)
-            out = attend(i, q).reshape(b, s, -1)
+                stack.k_pages[i], stack.v_pages[i], wr_page, wr_slot)
+            out = attend(i, q).reshape(n, -1)
             o = out @ a.wo
             x, h = ops.add_rms_norm(x, o, blk.ln2)
             r = ops.silu_mul(h @ f.wi_gate, h @ f.wi_up) @ f.wo
             step.update(attention=out, o_proj=o, ffn=r)
             if record:
-                rec.append({n: t[0, 0].clone() for n, t in step.items()})
+                rec.append({name: t[0].clone() for name, t in step.items()})
         return x + r
     return layers
 
@@ -1528,10 +1532,10 @@ def lane_vs_decode(torch, model, params, prompt, conf):
             def kv():
                 return (shard.k_pages[:, page, slot].clone(),
                         shard.v_pages[:, page, slot].clone())
-            shard._layers = traced_layers(shard, dec)
+            shard.stack.layers = traced_layers(shard.stack, dec)
             shard._decode_batch([seq])       # the decode step's write
             dk, dv = kv()
-            shard._layers = traced_layers(shard, ver)
+            shard.stack.layers = traced_layers(shard.stack, ver)
             shard.step()                     # one round: lane 0 rewrites
             vk, vv = kv()
     finally:
@@ -1569,11 +1573,12 @@ def rider_vs_decode(torch, model, params, prompt, other, conf):
             def kv():
                 return (shard.k_pages[:, page, slot].clone(),
                         shard.v_pages[:, page, slot].clone())
-            shard._layers = traced_layers(shard, dec)
+            shard.stack.layers = traced_layers(shard.stack, dec)
             shard._decode_batch([seq])       # the decode step's write
             dk, dv = kv()
-            shard._layers = traced_layers(shard, rode,
-                                          lambda x: x.shape[1] == 1)
+            # the riders' decode step: max_batch rows (the chunk is C lanes)
+            shard.stack.layers = traced_layers(
+                shard.stack, rode, lambda x: x.shape[0] == shard.max_batch)
             chunks = shard.rider_chunks
             session.submit(other, max_new_tokens=1)
             shard.step()                     # the row rides other's chunk

@@ -25,29 +25,29 @@ request's KV (the serving-world version of Figure 1's SEGFAULT).  The SMR +
 SCOT discipline prevents exactly that; the port's tests check that paged
 outputs equal the contiguous-cache reference decode, token for token.
 
+The engine keeps the host side (operands, embedding, the logits, sampling,
+scheduling, page allocation, the prefix cache).  The pool's format and the
+decoder blocks over it are the shard's stack (``serving/paged_stack.py``):
+dense decoders (GQA attention, SwiGLU FFN) over a K/V pair, MLA decoders
+(DeepSeek-V2) over one latent pool, which takes no speculative decoding,
+host swap tier or live migration (the shard refuses them when it is made).
+
 What differs from the reference, all on the device side (the host logic is
 the reference's):
 
-* The KV pool is a pair of ``(L, num_pages, page, Hkv, D)`` tensors on the
-  engine's device, updated IN PLACE (the reference donates its buffers to
-  ``jit``).  The device functions are plain methods; PyTorch runs eagerly.
-  An MLA model (DeepSeek-V2) keeps one latent pool ``(L, num_pages, page,
-  rank + rope)`` in their place: each token's RMS-normed latent and its
-  roped key dimensions, read by every head (``kernels/mla_attention.py``).
+* The pool is updated IN PLACE on the engine's device (the reference
+  donates its buffers to ``jit``); PyTorch runs eagerly, and a dense
+  block's elementwise chain runs as fused kernels
+  (``kernels/fused_block.py``) where XLA fuses it.
 * Masked writes: every lane carries a write target, and a padding lane
   or an unoccupied row carries page -1, which writes nothing: it never
   touches a page, shared or recycled (the reference scatters them out of
   bounds with ``mode="drop"``).
-* Each decoder block's elementwise chain runs as three fused kernels
-  (``kernels/fused_block.py``: add + RMSNorm, q/k RMSNorm + RoPE + the
-  K/V store, SiLU * mul) around the matrix products, where XLA fuses it
-  inside the reference's ``jit``; the rope table is made once a call.
-* Every prefill attends through ``ops.packed_prefill_attention``: the
-  ``chunked`` scheduler's single-sequence chunk is a packed chunk with one
-  segment, so the default scheduler launches the kernel too.  The packed
-  scheduler always takes the (segments x max_pages) rectangle with its
-  power-of-two segment bucket; the reference's kernel-less ragged layout
-  (``_paged_step_packed_flat``) is not ported.
+* Every prefill chunk runs one device function, ``_paged_prefill_packed``:
+  the ``chunked`` scheduler's chunk is a packed chunk with one segment.
+  The packed scheduler always takes the (segments x max_pages) rectangle
+  with its power-of-two segment bucket; the reference's kernel-less ragged
+  layout (``_paged_step_packed_flat``) is not ported.
 * The fused packed step runs its decode riders as the decode step
   (products at max_batch rows, ``ops.paged_attention`` with the decode
   step's split count) beside the prefill chunk, which is C lanes wide;
@@ -100,13 +100,6 @@ architecture decision (DESIGN.md §11).
 :class:`PagedServingEngine` survives one release as a ``DeprecationWarning``
 shim mapping the old kwargs onto :class:`ServingConfig`; new code goes
 through :func:`repro_torch.serving.serve`.
-
-It serves dense decoders (GQA attention, SwiGLU FFN) and MLA decoders
-(DeepSeek-V2: latent attention over the latent pool, a dense FFN or the
-dropless expert layer of the experts this device holds,
-``models/moe.py`` ``dropless_moe``).  A latent pool takes no speculative
-decoding, host swap tier or live migration: the engine refuses them when
-it is made.
 """
 
 from __future__ import annotations
@@ -125,11 +118,8 @@ import torch
 from ..core.smr.base import SmrScheme
 from ..kernels import ops
 from ..kernels import ref as kref
-from ..models.config import options
 from ..models.layers import apply_rope, rms_norm, rope_angles
-from ..models.mla import rope_table, rotate, softmax_scale
-from ..models.moe import dropless_moe
-from ..models.params import DTYPES, layer_kinds, resolve_device
+from ..models.params import DTYPES, resolve_device
 from ..models.registry import derive_draft
 from ..models.transformer import _qkv, ffn_apply
 from ..runtime.block_pool import BlockPool, PageNode
@@ -138,6 +128,7 @@ from ..runtime.swap import SwapArena, SwapArenaFullError, SwapChecksumError
 from .config import ServingConfig
 from .faults import build_fault_line
 from .lru_index import BatchedLruEviction
+from .paged_stack import stack_class
 from .policies import as_admission_policy, as_scheduler_policy
 from .sampling import as_sampling_policy
 from .spans import SpanRecorder
@@ -296,20 +287,7 @@ class _ShardEngine:
                  device=None, smr: Optional[SmrScheme] = None,
                  shard_id: int = 0, prefix_traversal=None):
         cfg = model.cfg
-        self.mla = cfg.use_mla
-        if cfg.family != "dense" and not (cfg.family == "moe" and self.mla):
-            raise ValueError(f"the engine serves dense and MLA models, got "
-                             f"{cfg.name!r} (family {cfg.family!r})")
-        if self.mla:
-            unsupported = [name for name, on in (
-                ("speculative decoding (spec_k)", config.spec_k > 0),
-                ("the host swap tier (swap_bytes)", config.swap_bytes > 0),
-                ("live migration (watchdog 'migrate')",
-                 config.watchdog == "migrate")) if on]
-            if unsupported:
-                raise ValueError(f"{cfg.name!r} serves from a latent pool, "
-                                 f"which takes no " +
-                                 ", ".join(unsupported))
+        make_stack = stack_class(cfg, config)     # refuses before building
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         if params.embed.device != self.device or \
@@ -346,24 +324,15 @@ class _ShardEngine:
         # the kernels build here, on the constructing thread, never inside
         # a step (where the build would hold the step lock)
         ops.prepare(self.device)
-        L = cfg.n_layers
-        if self.mla:
-            self._init_latent(params)
-        else:
-            kv = (L, config.num_pages, config.page_size, cfg.n_kv_heads,
-                  cfg.head_dim)
-            # the paged KV pool, written in place by every device function
-            self.k_pages = torch.zeros(kv, dtype=self.dtype,
-                                       device=self.device)
-            self.v_pages = torch.zeros(kv, dtype=self.dtype,
-                                       device=self.device)
-            # the paged kernel's split count of the decode step (max_batch
-            # rows), passed to every paged call: the spec verify runs its
-            # lanes as paged rows with the same splits, so each lane sums a
-            # row in the decode step's order
-            self.decode_splits = ops.paged_splits(
-                self.max_batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                self.max_pages, self.dtype, self.device)
+        # the serving loop's spans (serving/spans.py): always-on totals,
+        # a ring while a capture is open
+        self.spans = SpanRecorder()
+        self._capture = None
+        # the pool and the decoder blocks over it; the K/V pair (None under
+        # a latent pool) is read and written in place through these names
+        self.stack = make_stack(cfg, params, config, self.spans,
+                                self._to_dev)
+        self.k_pages, self.v_pages = self.stack.k_pages, self.stack.v_pages
         self._waiting = self.admission.new_queue()
         self._wlock = threading.Lock()
         # scheduler states: _prefilling (pages reserved, prompt chunks
@@ -402,7 +371,8 @@ class _ShardEngine:
             # the arena's slot allocator negotiates the same scheme as the
             # BlockPool free list (lock-free by default, "locked" fallback)
             self.swap_arena = SwapArena(
-                config.swap_bytes, n_layers=L, page_size=config.page_size,
+                config.swap_bytes, n_layers=cfg.n_layers,
+                page_size=config.page_size,
                 n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
                 dtype=("uint16" if self.dtype == torch.bfloat16
                        else cfg.dtype), scheme=config.pool_scheme)
@@ -418,26 +388,12 @@ class _ShardEngine:
         self.n_slo_cancelled = 0        # TTFT SLO expiries (subset of
         #                                 n_cancelled)
         self.n_itl_violations = 0       # observed inter-token SLO misses
-        # the serving loop's spans (serving/spans.py): always-on totals,
-        # a ring while a capture is open
-        self.spans = SpanRecorder()
-        self._capture = None
         # prompt tokens run through a prefill chunk (no padding, no hits)
         self.prefill_tokens_computed = 0
         # occupied rows of every decode call, and their summed context
         # lengths (the keys the paged kernel reads a layer)
         self.decode_rows = 0
         self.decode_kv_tokens = 0
-        # decoder-block passes of the device functions through the fused
-        # kernels (a CUDA engine) and through their plain versions
-        self.fused_blocks = 0
-        self.eager_blocks = 0
-        # MLA models: prefill lanes through the MLA kernel and the keys
-        # they attend; expert-layer passes of the decode calls (their
-        # routed pairs: _moe_pairs)
-        self.mla_prefill_rows = 0
-        self.mla_prefill_keys = 0
-        self.moe_decode_passes = 0
         # ITL gap accounting: intervals spanning a preemption park or a
         # migration stall, excluded from itl() and the SLO observation
         self.n_gap_intervals = 0
@@ -616,7 +572,8 @@ class _ShardEngine:
                 written = len(seq.tokens) - 1
                 n_pages = -(-written // self.page_size)
                 if n_pages:
-                    k_np, v_np = self._pages_to_host(seq.page_row[:n_pages])
+                    k_np, v_np = self.stack.pages_to_host(
+                        seq.page_row[:n_pages])
                     seq.req._carried = (k_np, v_np, written)
             seqs = self._prefilling + self._active
             self._prefilling = []
@@ -647,59 +604,6 @@ class _ShardEngine:
         self.n_migrated_in += 1
         return req
 
-    def _init_latent(self, params) -> None:
-        """An MLA model's latent pool, its layers' block kinds, the absorbed
-        W_uk / W_uv views and the decode step's split count."""
-        cfg, config = self.cfg, self.config
-        h, rank = cfg.n_heads, cfg.kv_lora_rank
-        self.latent_pages = torch.zeros(
-            (cfg.n_layers, config.num_pages, config.page_size,
-             rank + cfg.rope_head_dim), dtype=self.dtype, device=self.device)
-        self.k_pages = self.v_pages = None
-        self.blocks = list(params.head_blocks) + list(params.blocks)
-        self.kinds = layer_kinds(cfg)
-        self.n_moe_layers = sum(k.endswith("moe") for k in self.kinds)
-        # (H, nope, rank) and (H, rank, v): views of w_uk / w_uv, no copy
-        self.absorb = [
-            (blk.attn.w_uk.view(rank, h, cfg.nope_head_dim).permute(1, 2, 0),
-             blk.attn.w_uv.view(rank, h, cfg.v_head_dim).permute(1, 0, 2))
-            for blk in self.blocks]
-        self.mla_scale = softmax_scale(cfg)
-        # (token, choice) pairs the decode calls routed to the experts held
-        # here, summed on the device (stats() reads it)
-        self._moe_pairs = torch.zeros((), dtype=torch.int64,
-                                      device=self.device)
-        # every MLA call (decode rows, prefill lanes) takes the decode
-        # step's splits, so a position is summed in one order
-        self.decode_splits = ops.mla_splits(
-            self.max_batch, h, self.max_pages * self.page_size, self.device)
-
-    def _latent_attend(self, tables, ctx, occupancy, prefill: bool):
-        """``attend(i, q)`` of an MLA device function: the MLA kernel over
-        layer i's latent pages for rows (tables, ctx, occupancy)."""
-        def attend(i, q):
-            return ops.mla_attention(
-                q, self.latent_pages[i], tables, ctx, occupancy=occupancy,
-                scale=self.mla_scale, rank=self.cfg.kv_lora_rank,
-                num_splits=self.decode_splits, prefill=prefill)
-        return attend
-
-    def _lane_attend(self, page_rows, seg_ids, positions):
-        """A prefill chunk's ``attend``: one MLA row per lane (its segment's
-        block run, context = position + 1; padding lanes unoccupied)."""
-        return self._latent_attend(
-            page_rows[seg_ids.clamp(min=0).long()].contiguous(),
-            (positions + 1).to(torch.int32), seg_ids >= 0, prefill=True)
-
-    def _count_lanes(self, seg, pos) -> None:
-        """Count a prefill chunk's live lanes (host arrays) and the keys
-        they attend, for an MLA model."""
-        if self.mla:
-            live = seg >= 0
-            self.mla_prefill_rows += int(live.sum())
-            self.mla_prefill_keys += int((pos[live].astype(np.int64) +
-                                          1).sum())
-
     # ------------------------------------------------------------- device fns
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device.  On the card the copy
@@ -713,159 +617,18 @@ class _ShardEngine:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _rope(self, positions):
-        """The call's rope table: (cos, sin) of the angles at ``positions``
-        (..., ) → two (..., D/2) fp32 tensors, made once for every layer
-        (an MLA model's: its rope head's, YaRN where the config has it)."""
-        if self.mla:
-            return rope_table(self.cfg, positions)
-        angles = rope_angles(positions, self.cfg.head_dim,
-                             self.cfg.rope_theta)
-        return torch.cos(angles), torch.sin(angles)
-
-    def _layers(self, x, rope, wr_page, wr_slot, attend, pairs=None):
-        """Run every decoder block over x (B, S, d).  ``rope`` is the call's
-        (cos, sin) table (:meth:`_rope`); each of the B * S lanes stores its
-        K/V into the pool at (``wr_page``, ``wr_slot``), (B * S,) int64, a
-        negative page writing nothing; ``attend(i, q)`` returns the
-        (B, S, H, D) attention output over the pool.  The targets and
-        ``attend`` are the only places the device functions differ.
-
-        The chain between the products runs through the fused ops
-        (``kernels/fused_block.py``): add + RMSNorm at ``ln1`` (folding in
-        the previous block's FFN output) and at ``ln2`` (the attention
-        output), q/k RMSNorm + RoPE + the K/V store, SiLU * mul.  On a CPU
-        tensor each is the plain chain, op for op.
-
-        An MLA model runs :meth:`_mla_layers` (``pairs``: the decode
-        call's counter of routed pairs, or None)."""
-        if self.mla:
-            return self._mla_layers(x, rope, wr_page, wr_slot, attend, pairs)
-        cfg = self.cfg
-        b, s, _ = x.shape
-        heads = (b, s, cfg.n_heads, cfg.head_dim)
-        kv_heads = (b, s, cfg.n_kv_heads, cfg.head_dim)
-        cos, sin = rope
-        r = None
-        for i, blk in enumerate(self.params.blocks):
-            a, f = blk.attn, blk.ffn
-            x, h = ops.add_rms_norm(x, r, blk.ln1)
-            q = ops.qk_norm_rope_write(
-                (h @ a.wq).view(heads), (h @ a.wk).view(kv_heads),
-                (h @ a.wv).view(kv_heads),
-                a.q_norm if cfg.qk_norm else None,
-                a.k_norm if cfg.qk_norm else None, cos, sin,
-                self.k_pages[i], self.v_pages[i], wr_page, wr_slot)
-            out = attend(i, q)
-            x, h = ops.add_rms_norm(x, out.reshape(b, s, -1) @ a.wo, blk.ln2)
-            r = ops.silu_mul(h @ f.wi_gate, h @ f.wi_up) @ f.wo
-        if x.is_cuda:
-            self.fused_blocks += len(self.params.blocks)
-        else:
-            self.eager_blocks += len(self.params.blocks)
-        return x + r
-
-    def _mla_layers(self, x, rope, wr_page, wr_slot, attend, pairs):
-        """Every MLA decoder block over x (B, S, d), as :meth:`_layers`:
-        q_a → RMSNorm → q_b; kv_a → the latent RMSNorm and the key rope
-        stored into the latent pool (``ops.mla_latent_store``: page -1
-        writes nothing); q_nope absorbed through W_uk, q_rope roped;
-        ``attend(i, q)`` over the latent pages (B S, H, rank); W_uv, o_proj.
-        The FFN is the dense SwiGLU or, in an expert layer, the dropless
-        expert layer of the experts held here (lanes with page -1 route
-        nowhere).  Spans ``mla.attend`` and ``moe.dispatch`` time each
-        attention's and each expert pass's host side."""
-        cfg = self.cfg
-        interleaved = options(cfg).rope_interleaved
-        b, s, d = x.shape
-        n = b * s
-        h, nope = cfg.n_heads, cfg.nope_head_dim
-        cos, sin = (t.reshape(n, -1) for t in rope)
-        live = wr_page >= 0
-        x = x.reshape(n, d)
-        r = None
-        for i, (blk, kind) in enumerate(zip(self.blocks, self.kinds)):
-            a, f = blk.attn, blk.ffn
-            uk, uv = self.absorb[i]
-            x, hn = ops.add_rms_norm(x, r, blk.ln1)
-            with self.spans.span("mla.attend"):
-                q = ops.add_rms_norm(hn @ a.w_dq, None, a.q_norm)[1] @ a.w_uq
-                q = q.view(n, h, -1)
-                ops.mla_latent_store(hn @ a.w_dkv, a.kv_norm, cos, sin,
-                                     self.latent_pages[i], wr_page, wr_slot,
-                                     interleaved=interleaved)
-                q = torch.cat([
-                    torch.bmm(q[..., :nope].transpose(0, 1), uk)
-                    .transpose(0, 1),
-                    rotate(q[..., nope:], cos, sin, interleaved)],
-                    dim=-1)
-                o = torch.bmm(attend(i, q).transpose(0, 1), uv)
-                o = o.transpose(0, 1).reshape(n, -1) @ a.wo
-            x, hn = ops.add_rms_norm(x, o, blk.ln2)
-            if kind.endswith("moe"):
-                with self.spans.span("moe.dispatch"):
-                    r = dropless_moe(f, cfg, hn, live, pairs)
-            else:
-                r = ops.silu_mul(hn @ f.wi_gate, hn @ f.wi_up) @ f.wo
-        if x.is_cuda:
-            self.fused_blocks += len(self.blocks)
-        else:
-            self.eager_blocks += len(self.blocks)
-        return (x + r).view(b, s, d)
-
     def _logits(self, h):
         """Final norm + LM head on the rows that emit, h (N, d) → (N, V)."""
         return ops.add_rms_norm(h, None, self.params.final_norm)[1] @ \
             self.params.lm_head
 
-    def _paged_prefill(self, tokens, page_row, start: int, n_valid: int,
-                       emit: bool):
-        """Ingest ONE fixed-size prefill chunk of one sequence.
-
-        tokens: (C,) — prompt[start : start+n_valid] zero-padded to the
-        configured chunk size C; page_row: (max_pages,) the sequence's
-        block run; start: tokens already in pages (page-aligned: a
-        prefix-cache hit or the previous chunk's boundary); n_valid ≤ C.
-
-        Only the chunk's C lanes run through the model; attention reads the
-        earlier prefix K/V back from the PAGES through the packed-prefill
-        kernel with one segment (seg_ids 0 on valid lanes, -1 on padding,
-        positions start + arange(C), seg_ctx [start + n_valid]), exactly
-        like a packed chunk — so chunk N resumes bit-identically from chunk
-        N-1's boundary whether that boundary came from a cache hit or an
-        earlier chunk.  Only the n_valid lanes write K/V (the padding
-        lanes' page is -1).
-
-        Returns the (1, V) logits of the last valid lane when ``emit``
-        (the final chunk), else None."""
-        c = tokens.shape[0]
-        pos = start + np.arange(c, dtype=np.int32)
-        seg = np.where(np.arange(c) < n_valid, 0, -1).astype(np.int32)
-        wr_page = np.full((c,), -1, np.int64)
-        wr_page[:n_valid] = page_row[pos[:n_valid] // self.page_size]
-        positions = self._to_dev(pos)
-        seg_ids = self._to_dev(seg)
-        page_rows = self._to_dev(page_row[None])
-        seg_ctx = self._to_dev(np.asarray([start + n_valid], np.int32))
-        x = self.params.embed[self._to_dev(tokens.astype(np.int64))][None]
-        self._count_lanes(seg, pos)
-
-        def attend(i, q):
-            return ops.packed_prefill_attention(
-                q[0], self.k_pages[i], self.v_pages[i], page_rows, seg_ids,
-                positions, seg_ctx)
-
-        if self.mla:
-            attend = self._lane_attend(page_rows, seg_ids, positions)
-        x = self._layers(x, self._rope(positions[None]),
-                         self._to_dev(wr_page),
-                         self._to_dev((pos % self.page_size).astype(np.int64)),
-                         attend)
-        return self._logits(x[:, n_valid - 1]) if emit else None
-
     def _paged_prefill_packed(self, tokens, seg_ids, positions, page_rows,
                               seg_ctx, emit_lanes, wr_page, wr_slot):
-        """Ingest ONE packed multi-segment chunk (the ``packed`` scheduler).
+        """Ingest ONE fixed-shape prefill chunk: the device function of
+        every scheduler (a ``chunked`` or ``oneshot`` chunk is one
+        segment), so chunk N resumes bit-identically from chunk N-1's
+        boundary whether that boundary came from a cache hit or an earlier
+        chunk.
 
         tokens: (C,) — several sequences' prompt slices laid end to end
         in one fixed-shape chunk (C = prefill_chunk_tokens); seg_ids (C,)
@@ -879,22 +642,15 @@ class _ShardEngine:
         through the pages.  wr_page / wr_slot (C,) int64: each lane's
         target; padding lanes carry page -1 and write nothing.
 
-        emit_lanes (S,): the lane holding each segment's LAST token (clamped
-        into range; rows of non-emitting segments are ignored by the host).
-        Returns the (S, V) logits of those lanes."""
-        x = self.params.embed[tokens][None]               # (1, C, d)
-
-        def attend(i, q):
-            return ops.packed_prefill_attention(
-                q[0], self.k_pages[i], self.v_pages[i], page_rows, seg_ids,
-                positions, seg_ctx)
-
-        if self.mla:
-            attend = self._lane_attend(page_rows, seg_ids, positions)
-        x = self._layers(x, self._rope(positions[None]), wr_page, wr_slot,
-                         attend)
+        emit_lanes: the lanes whose logits are returned — (S,) the lane
+        holding each segment's LAST token (clamped into range; rows of
+        non-emitting segments are ignored by the host), or a one-lane
+        slice, or None for no logits (a chunk that finishes no prompt).
+        Returns the (S, V) logits of those lanes, or None."""
+        x = self.stack.lanes(self.params.embed[tokens], seg_ids, positions,
+                             page_rows, seg_ctx, wr_page, wr_slot)
         # one lm_head row per SEGMENT (S rows), not per lane
-        return self._logits(x[0, emit_lanes])
+        return None if emit_lanes is None else self._logits(x[emit_lanes])
 
     def _paged_decode_step(self, block_tables, ctx_lens, tokens, occ,
                            positions, wr_page, wr_slot):
@@ -905,23 +661,9 @@ class _ShardEngine:
         reused or otherwise, and the kernel pins their attention output to
         zero, so padding needs no reserved scratch page.  Returns (B, V)
         logits."""
-        x = self.params.embed[tokens][:, None, :]         # (B, 1, d)
-        pairs = None
-
-        def attend(i, q):
-            return ops.paged_attention(q[:, 0], self.k_pages[i],
-                                       self.v_pages[i], block_tables,
-                                       ctx_lens, occupancy=occ,
-                                       num_splits=self.decode_splits)
-
-        if self.mla:
-            attend = self._latent_attend(block_tables, ctx_lens, occ,
-                                         prefill=False)
-            pairs = self._moe_pairs
-            self.moe_decode_passes += self.n_moe_layers
-        x = self._layers(x, self._rope(positions[:, None]), wr_page, wr_slot,
-                         attend, pairs)
-        return self._logits(x[:, 0])
+        return self._logits(self.stack.rows(
+            self.params.embed[tokens], block_tables, ctx_lens, occ,
+            positions, wr_page, wr_slot))
 
     @staticmethod
     def _operands(seqs, n: int):
@@ -1098,24 +840,13 @@ class _ShardEngine:
         wr = np.flatnonzero(live)
         wr_page = np.full(live.shape, -1, np.int64)
         wr_page[wr] = rows[lane_row[wr], positions[wr] // pgsz]
-        pos_d = self._to_dev(positions)
-        lane_tables = self._to_dev(rows[lane_row])
-        lane_ctx = self._to_dev(np.where(live, positions + 1, 0)
-                                .astype(np.int32))
-        live_d = self._to_dev(live)
         toks = torch.cat([self._to_dev(x_last)[:, None], d_toks], dim=1)
-        x = self.params.embed[toks.reshape(-1)][None]        # (1, LV, d)
-
-        def attend(i, q):
-            out = ops.paged_attention(
-                q[0], self.k_pages[i], self.v_pages[i], lane_tables,
-                lane_ctx, occupancy=live_d, num_splits=self.decode_splits)
-            return out[None]
-
-        x = self._layers(x, self._rope(pos_d[None]), self._to_dev(wr_page),
-                         self._to_dev((positions % pgsz).astype(np.int64)),
-                         attend)
-        logits = self._logits(x[0])                           # (LV, V)
+        x = self.stack.rows(
+            self.params.embed[toks.reshape(-1)], self._to_dev(rows[lane_row]),
+            self._to_dev(np.where(live, positions + 1, 0).astype(np.int32)),
+            self._to_dev(live), self._to_dev(positions), self._to_dev(wr_page),
+            self._to_dev((positions % pgsz).astype(np.int64)))
+        logits = self._logits(x)                              # (LV, V)
         p_dists = kref.filtered_dist_ref(
             logits, sampf[lane_row, 0], sampi[lane_row, 0],
             sampf[lane_row, 1]).reshape(b, lanes_per, -1)
@@ -1345,37 +1076,6 @@ class _ShardEngine:
             freed += owned
         return True
 
-    def _pages_to_host(self, page_ids: np.ndarray):
-        """K and V of the given pages, all layers, as host arrays
-        ``(n, L, page, Hkv, D)`` in the arena's dtype: one gather each and
-        one synchronous device→host copy — when this returns the bytes are
-        on the host (bf16 as its 16-bit patterns)."""
-        idx = self._to_dev(page_ids.astype(np.int64))
-        out = []
-        for pool in (self.k_pages, self.v_pages):
-            t = pool[:, idx].transpose(0, 1).contiguous()
-            if t.dtype == torch.bfloat16:
-                t = t.view(torch.int16)
-            a = t.cpu().numpy()
-            out.append(a.view(np.uint16) if a.dtype == np.int16 else a)
-        return out[0], out[1]
-
-    def _pages_from_host(self, page_ids: np.ndarray, k_np, v_np) -> None:
-        """Scatter host pages ``(n, L, page, Hkv, D)`` (as from
-        :meth:`_pages_to_host`) into the given device pages and wait until
-        the writes are done."""
-        idx = self._to_dev(page_ids.astype(np.int64))
-        for pool, a in ((self.k_pages, k_np), (self.v_pages, v_np)):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if pool.dtype == torch.bfloat16:
-                t = t.view(torch.int16)
-            t = t.to(self.device)
-            if pool.dtype == torch.bfloat16:
-                t = t.view(torch.bfloat16)
-            pool[:, idx] = t.transpose(0, 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _preempt_seq(self, seq: _Seq) -> bool:
         """Spill one active sequence to the host arena and park it.
 
@@ -1399,7 +1099,8 @@ class _ShardEngine:
         n_spill = -(-written // self.page_size)
         if n_spill > 0:
             with self.spans.span("swap.out"):
-                k_np, v_np = self._pages_to_host(seq.page_row[:n_spill])
+                k_np, v_np = self.stack.pages_to_host(
+                    seq.page_row[:n_spill])
             try:
                 # the arena counts whole pages; _swap_tokens the written
                 # positions among them
@@ -1443,7 +1144,7 @@ class _ShardEngine:
                 seq.filled = start       # recompute everything past the hit
             else:
                 with self.spans.span("swap.in"):
-                    self._pages_from_host(
+                    self.stack.pages_from_host(
                         seq.page_row[from_page:from_page + k_np.shape[0]],
                         k_np, v_np)
                 seq.filled = req._swap_tokens
@@ -1460,8 +1161,8 @@ class _ShardEngine:
         start = req._hit_tokens          # page-aligned (lookup guarantees)
         if n_tok > start:
             first = start // self.page_size
-            self._pages_from_host(seq.page_row[first:k_np.shape[0]],
-                                  k_np[first:], v_np[first:])
+            self.stack.pages_from_host(seq.page_row[first:k_np.shape[0]],
+                                       k_np[first:], v_np[first:])
             seq.filled = n_tok
 
     def _emit(self, seq: _Seq, tok: int, lp: float = 0.0) -> None:
@@ -1513,14 +1214,28 @@ class _ShardEngine:
         logits = None
         while seq.filled < end:
             with self.spans.span("chunk"):
+                # one segment; padding lanes have segment and page -1
                 n_valid = min(chunk, end - seq.filled)
                 buf = np.zeros((chunk,), np.int64)
                 buf[:n_valid] = req.prompt[seq.filled:seq.filled + n_valid]
+                pos = seq.filled + np.arange(chunk, dtype=np.int32)
+                seg = np.where(np.arange(chunk) < n_valid, 0,
+                               -1).astype(np.int32)
+                wr_page = np.full((chunk,), -1, np.int64)
+                wr_page[:n_valid] = seq.page_row[pos[:n_valid] //
+                                                 self.page_size]
+                emit = seq.filled + n_valid == n_prompt and \
+                    self._prefill_emits(seq)
                 self._fault_dispatch()
-                logits = self._paged_prefill(
-                    buf, seq.page_row, seq.filled, n_valid,
-                    emit=seq.filled + n_valid == n_prompt
-                    and self._prefill_emits(seq))
+                self.stack.count_lanes(seg, pos)
+                logits = self._paged_prefill_packed(
+                    self._to_dev(buf), self._to_dev(seg), self._to_dev(pos),
+                    self._to_dev(seq.page_row[None]),
+                    self._to_dev(np.asarray([seq.filled + n_valid],
+                                            np.int32)),
+                    slice(n_valid - 1, n_valid) if emit else None,
+                    self._to_dev(wr_page),
+                    self._to_dev((pos % self.page_size).astype(np.int64)))
             seq.filled += n_valid
             self.prefill_chunks += 1
             self.prefill_tokens_wasted += chunk - n_valid
@@ -1662,7 +1377,7 @@ class _ShardEngine:
                 self.packed_segments += len(members)
                 self.prefill_tokens_wasted += chunk - lane
                 self.prefill_tokens_computed += lane
-                self._count_lanes(segs, poss)
+                self.stack.count_lanes(segs, poss)
                 self._fault_dispatch()
                 # power-of-2 segment bucket: pay for the segments actually
                 # present, not max_batch (seg ids are compact, so a prefix
@@ -1854,8 +1569,8 @@ class _ShardEngine:
             return
         page = np.zeros((1,), np.int64)
         with self._step_lock, torch.inference_mode():
-            k_np, v_np = self._pages_to_host(page)
-            self._pages_from_host(page, k_np, v_np)
+            k_np, v_np = self.stack.pages_to_host(page)
+            self.stack.pages_from_host(page, k_np, v_np)
 
     def warm_packed(self) -> None:
         """Launch every packed-prefill segment bucket (1, 2, 4, ...,
@@ -2164,13 +1879,7 @@ class _ShardEngine:
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "decode_rows": self.decode_rows,
             "decode_kv_tokens": self.decode_kv_tokens,
-            "fused_blocks": self.fused_blocks,
-            "eager_blocks": self.eager_blocks,
-            "mla_prefill_rows": self.mla_prefill_rows,
-            "mla_prefill_keys": self.mla_prefill_keys,
-            "moe_decode_passes": self.moe_decode_passes,
-            "moe_decode_local_pairs": (int(self._moe_pairs)
-                                       if self.moe_decode_passes else 0),
+            **self.stack.stats(),
             # batches of recency stamps the LRU index took, and their
             # stamps (0 under the other eviction policies)
             "lru_flushes": getattr(self.prefix_cache.eviction,

@@ -8,7 +8,8 @@ equals a literal transcription of the published rule; YaRN's frequencies
 and scale equal hand-computed values at the published settings; the held
 shares of all eight routing groups, with the shared experts once, add up
 to the uncut expert layer; and a latent pool refuses speculative decoding,
-the swap tier and live migration."""
+the swap tier and live migration, as the engine refuses a family it does
+not serve."""
 
 import importlib.util
 import math
@@ -129,11 +130,11 @@ def test_served_logits_match_the_reference(arch, tiny_cfg, monkeypatch):
     assert totals["mla_prefill_rows"] == sum((21, 45, 13, 38, 29, 17))
     assert totals["moe_decode_passes"] > 0
     # a decode step of padded rows only (page -1) writes nothing
-    before = shard.latent_pages.clone()
+    before = shard.stack.latent_pages.clone()
     b = shard.max_batch
     with torch.inference_mode():
         shard._decode_logits([])
-    assert torch.equal(shard.latent_pages, before)
+    assert torch.equal(shard.stack.latent_pages, before)
     assert b == 4 and totals["decode_rows"] > 0
 
 
@@ -243,14 +244,22 @@ def test_group_shares_add_up_to_the_uncut_layer(arch, tiny_cfg):
     ({"spec_k": 2}, "speculative decoding"),
     ({"swap_bytes": 1 << 20, "eviction": "swap"}, "swap tier"),
     ({"watchdog": "migrate"}, "live migration"),
+    (None, "serves dense and MLA models"),
 ])
 def test_latent_pool_refuses(arch, tiny_cfg, kw, what):
-    cfg = arch.model_config(tiny_cfg, "float32")
-    model = build_model(cfg)
-    params = arch.program_params(_weights(arch, tiny_cfg))
+    if kw is None:
+        # a family the engine does not serve at all
+        cfg = get_config("mamba2-1.3b").reduced().replace(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu")
+    else:
+        cfg = arch.model_config(tiny_cfg, "float32")
+        model = build_model(cfg)
+        params = arch.program_params(_weights(arch, tiny_cfg))
     sc = serving.ServingConfig(**{"num_pages": 64, "page_size": 8,
                                   "max_batch": 2, "max_seq_len": 64,
-                                  "watchdog": "off", **kw})
+                                  "watchdog": "off", **(kw or {})})
     with pytest.raises(ValueError, match=what) as err:
         serving.serve(model, params, sc, device="cpu")
-    assert "deepseek-v2-236b" in str(err.value)
+    assert ("mamba2-1.3b" if kw is None else "deepseek-v2-236b") in \
+        str(err.value)

@@ -8,9 +8,10 @@ on the CPU, where each runs its plain version.
   (32 / 4 heads, D 64, no q/k norm).
 * A negative page writes nothing: padding rows and lanes leave every page
   byte as it was.
-* Each of the engine's four device functions (the decode step, the
-  single-sequence and the packed prompt chunk, the speculative verify)
-  writes exactly its live lanes' slots, in every layer.
+* Each of the engine's device calls (the decode step, a single-sequence
+  and a packed prompt chunk through the one prefill device function, the
+  speculative verify) writes exactly its live lanes' slots, in every
+  layer, of a K/V pair and (but the verify) of a latent pool.
 * ``stats()`` counts the decoder-block passes, all of them eager on the
   CPU, and the benchmark's reader of the two counters
   (``h100bench/metrics/engine.fused_block_share.py``) turns window totals
@@ -33,6 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import fused_block, ops
 from repro_torch.models import build_model
 from repro_torch.models.layers import apply_rope, rms_norm, rope_angles
+from repro_torch.serving.engine import Request, _Seq
 
 # (d, H, Hkv, D, qk_norm, d_ff, rope_theta) of the published configs
 SHAPES = {"qwen3-32b": (5120, 64, 8, 128, True, 25600, 1e6),
@@ -147,23 +149,45 @@ def tiny():
     return model, model.init(seed=0, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def tiny_latent():
+    cfg = get_config("deepseek-v2-236b").reduced().replace(dtype="float32")
+    model = build_model(cfg)
+    return model, model.init(seed=0, device="cpu")
+
+
+def _pools(shard):
+    """The shard's pool tensors: its K/V pair, or its latent pool."""
+    if shard.k_pages is None:
+        return (shard.stack.latent_pages,)
+    return shard.k_pages, shard.v_pages
+
+
 def _changed(before, after):
-    """(layer, page, slot) triples whose K or V changed."""
-    k0, v0 = before
-    k1, v1 = after
-    diff = ((k0 != k1) | (v0 != v1)).any(dim=-1).any(dim=-1)
+    """(layer, page, slot) triples whose K or V (or latent) changed."""
+    diff = torch.stack([(a != b).flatten(3).any(dim=-1)
+                        for a, b in zip(before, after)]).any(dim=0)
     return {tuple(i) for i in diff.nonzero().tolist()}
 
 
-@pytest.mark.parametrize("path", ["decode", "chunk", "packed", "verify"])
-def test_device_functions_write_only_their_live_lanes(tiny, path):
+@pytest.mark.parametrize("path", ["decode", "chunk", "packed", "verify",
+                                  "latent-decode", "latent-chunk",
+                                  "latent-packed"])
+def test_device_functions_write_only_their_live_lanes(tiny, request, path):
     """Each device function called with padding: a batch row that is not
     occupied (its block table aliasing a live row's pages), padding lanes
     of a prompt chunk, verify lanes past a row's draft depth or of an
     unoccupied row.  Exactly the live lanes' (page, slot) change, in every
-    layer; every other page byte is as it was."""
-    model, params = tiny
+    layer; every other page byte is as it was.  ``latent-`` runs the path
+    on an MLA model's latent pool."""
     conf = dict(CONFIG, spec_k=2) if path == "verify" else dict(CONFIG)
+    if path.startswith("latent-"):
+        # a latent pool takes no live migration, the default watchdog's
+        model, params = request.getfixturevalue("tiny_latent")
+        path = path[len("latent-"):]
+        conf["watchdog"] = "off"
+    else:
+        model, params = tiny
     if path == "packed":
         conf["scheduler"] = "packed"
     session = serving.serve(model, params, serving.ServingConfig(**conf),
@@ -173,9 +197,9 @@ def test_device_functions_write_only_their_live_lanes(tiny, path):
     row = np.arange(3, 3 + shard.max_pages, dtype=np.int32)  # a page run
     dev = shard._to_dev
     rng = np.random.RandomState(1)
-    shard.k_pages.normal_(generator=torch.Generator().manual_seed(2))
-    shard.v_pages.normal_(generator=torch.Generator().manual_seed(3))
-    before = (shard.k_pages.clone(), shard.v_pages.clone())
+    for seed, pool in enumerate(_pools(shard), start=2):
+        pool.normal_(generator=torch.Generator().manual_seed(seed))
+    before = tuple(pool.clone() for pool in _pools(shard))
     with torch.inference_mode():
         if path == "decode":
             # row 0 live at position 9, row 1 padding aliasing row 0
@@ -189,10 +213,11 @@ def test_device_functions_write_only_their_live_lanes(tiny, path):
                 dev(occ), dev(pos), dev(wr_page), dev(pos % pgsz))
             live = [9]
         elif path == "chunk":
-            # 5 valid lanes of an 8-lane chunk from position 4
-            tokens = np.zeros((8,), np.int64)
-            tokens[:5] = rng.randint(1, 100, size=5)
-            shard._paged_prefill(tokens, row, 4, 5, emit=False)
+            # 5 valid lanes of an 8-lane chunk from position 4, as one
+            # segment of the prefill device function; the prompt goes on
+            req = Request(prompt=rng.randint(1, 100, size=20).tolist())
+            req._hit_tokens = 4
+            shard._advance_prefill(_Seq(req, [], 0, row), 5)
             live = list(range(4, 9))
         elif path == "packed":
             # two segments of 3 and 2 lanes, then padding
@@ -228,7 +253,7 @@ def test_device_functions_write_only_their_live_lanes(tiny, path):
     if live is not None:
         want = {(i, int(row[p // pgsz]), p % pgsz)
                 for i in range(n_layers) for p in live}
-    assert _changed(before, (shard.k_pages, shard.v_pages)) == want
+    assert _changed(before, _pools(shard)) == want
 
 
 def test_stats_count_block_passes_all_eager_on_the_cpu(tiny):

@@ -242,7 +242,7 @@ def test_packed_riders_attend_through_the_paged_kernel(models, monkeypatch):
     cfg = serving.ServingConfig(scheduler="packed", **CONFIG)
     session = serving.serve(model, tp, cfg, device="cpu", start=False)
     shard = session.engine.shards[0]
-    shard.decode_splits = 3
+    shard.stack.decode_splits = 3
     handles = [session.submit(p, max_new_tokens=N_NEW) for p in prompts]
     while not all(h.done.is_set() for h in handles):
         shard.step()

@@ -674,11 +674,11 @@ def test_swap_arena_bf16_round_trip_bit_exact():
                              dtype=torch.int32).to(torch.int16)
         pool.copy_(bits.view(torch.bfloat16))
     src, dst = np.asarray([5, 2]), np.asarray([0, 7])
-    k_np, v_np = shard._pages_to_host(src)
+    k_np, v_np = shard.stack.pages_to_host(src)
     assert k_np.dtype == np.uint16
     arena.store(1, k_np, v_np, 8)
     k_back, v_back = arena.load(1)
-    shard._pages_from_host(dst, k_back, v_back)
+    shard.stack.pages_from_host(dst, k_back, v_back)
     arena.release(1)
     for pool in (shard.k_pages, shard.v_pages):
         assert torch.equal(pool[:, dst].view(torch.int16),
