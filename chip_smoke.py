@@ -60,7 +60,11 @@ Phases, in order; each prints one line and any failure exits non-zero:
    the fused kernels (``stats()``'s ``fused_blocks``, none eager), and
    one decode call on the live engine launching ``add_rms_norm`` 45
    times (two a layer and the final norm), ``qk_norm_rope_write`` and
-   ``silu_mul`` 22 times each;
+   ``silu_mul`` 22 times each; every decode call (decode steps and rider
+   calls) a replay of the shard's CUDA graph of the decode call, whose
+   private pool's bytes are printed; then the same prompts served again
+   with the decode call launched eagerly: the two token streams' digests
+   must be equal;
 6b. serving DeepSeek-V2 in bf16 under ``packed`` at its published widths
    but 4 layers (1 dense, 3 expert layers of 20 held experts behind a
    160-wide group-limited router, YaRN): 24 requests, each completes with
@@ -68,7 +72,8 @@ Phases, in order; each prints one line and any failure exits non-zero:
    ``mla_attention`` launches its decode entry names once a layer for
    each decode call (decode steps and packed chunks with riders), its
    prefill names once a layer a packed chunk, and ``mla_latent_store``
-   once a layer for each of both;
+   once a layer for each of both; no decode call replays a graph (a
+   latent stack runs eagerly);
 7. the flash-attention kernel against its plain version at the models'
    full-sequence shapes (B = 4, S = 1024 and 1000, H = 32 with Hkv = 32
    as Zamba2 and Hkv = 4 as TinyLlama, D = 64), at DeepSeek-V2's MLA
@@ -298,6 +303,7 @@ result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -1086,8 +1092,21 @@ def serve_bf16(torch):
             fused_block.launches.reset()
             shard._decode_logits([])
             per_step = dict(fused_block.launches.by_variant)
+        graph_bytes = shard._decode_graph.pool_bytes
     finally:
         session.close()
+    decode_calls = stats["decode_steps"] + stats["rider_chunks"]
+    if stats["decode_graph_replays"] != decode_calls:
+        raise AssertionError(
+            f"bf16: {stats['decode_graph_replays']} graph replays for "
+            f"{decode_calls} decode calls: every one must replay")
+    eager_outs = serve_eager(model, params, prompts, n_new, session.config)
+    graph_digest, eager_digest = token_digest(outs), token_digest(eager_outs)
+    if graph_digest != eager_digest:
+        raise AssertionError(
+            f"bf16: graph tokens {graph_digest} differ from eager "
+            f"{eager_digest}; first difference "
+            f"{first_token_difference(outs, eager_outs)}")
     n_l = cfg.n_layers
     want_step = {"add_rms_norm": 2 * n_l + 1, "qk_norm_rope_write": n_l,
                  "silu_mul": n_l}
@@ -1139,8 +1158,50 @@ def serve_bf16(torch):
         "decode_steps": (paged_tc - rider_paged) // cfg.n_layers,
         "rider_chunks": stats["rider_chunks"],
         "fused_block_passes": stats["fused_blocks"],
-        "fused_launches_a_decode_step": per_step}
+        "fused_launches_a_decode_step": per_step,
+        "decode_graph_replays": stats["decode_graph_replays"],
+        "decode_graph_pool_bytes": graph_bytes,
+        "token_digest_graph": graph_digest,
+        "token_digest_eager": eager_digest}
     return summary, launches
+
+
+def serve_eager(model, params, prompts, n_new, config):
+    """``prompts`` served in a session under ``config`` whose decode calls
+    run eagerly (the shard's decode graph taken away before it starts)."""
+    from repro_torch import serving
+    session = serving.serve(model, params, config, device=DEVICE,
+                            start=False)
+    try:
+        for shard in session.engine.shards:
+            shard._decode_graph = None
+        session.start()
+        handles = session.submit_many(prompts, max_new_tokens=n_new)
+        outs = [hnd.result(timeout=600) for hnd in handles]
+        replays = session.stats()["totals"]["decode_graph_replays"]
+    finally:
+        session.close()
+    if replays:
+        raise AssertionError(f"eager serving replayed {replays} graphs")
+    return outs
+
+
+def token_digest(outs) -> str:
+    """sha256 of every request's tokens, in order."""
+    return hashlib.sha256(json.dumps(
+        [list(map(int, o)) for o in outs]).encode()).hexdigest()
+
+
+def first_token_difference(outs, refs):
+    """(request, position, token, reference token) of the first token
+    that differs, or None."""
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        for j, (a, b) in enumerate(zip(o, r)):
+            if a != b:
+                return i, j, int(a), int(b)
+        if len(o) != len(r):
+            return i, min(len(o), len(r)), None, None
+    return None
 
 
 def serve_deepseek_bf16(torch):
@@ -1196,6 +1257,9 @@ def serve_deepseek_bf16(torch):
             f"{stats['decode_steps']} decode steps, {stats['rider_chunks']} "
             f"rider chunks, {stats['packed_chunks']} packed chunks; want "
             f"{want}")
+    if stats["decode_graph_replays"]:
+        raise AssertionError(f"deepseek bf16: {stats['decode_graph_replays']}"
+                             f" graph replays: a latent stack runs eagerly")
     summary = {
         "requests": len(prompts), "completed": len(outs),
         "prompt_tokens": sum(len(p) for p in prompts),
@@ -1532,6 +1596,8 @@ def lane_vs_decode(torch, model, params, prompt, conf):
             def kv():
                 return (shard.k_pages[:, page, slot].clone(),
                         shard.v_pages[:, page, slot].clone())
+            # the traced copy records as it runs: the decode call eager
+            shard._decode_graph = None
             shard.stack.layers = traced_layers(shard.stack, dec)
             shard._decode_batch([seq])       # the decode step's write
             dk, dv = kv()
@@ -1573,6 +1639,8 @@ def rider_vs_decode(torch, model, params, prompt, other, conf):
             def kv():
                 return (shard.k_pages[:, page, slot].clone(),
                         shard.v_pages[:, page, slot].clone())
+            # the traced copy records as it runs: the decode call eager
+            shard._decode_graph = None
             shard.stack.layers = traced_layers(shard.stack, dec)
             shard._decode_batch([seq])       # the decode step's write
             dk, dv = kv()

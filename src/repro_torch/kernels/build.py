@@ -14,6 +14,7 @@ There is no fallback: a missing ``nvcc`` or a failed compile raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,15 +45,36 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self.count = 0
         self.by_variant: Dict[str, int] = {}
+        self._thread = threading.local()
 
-    def add(self, variant: str) -> None:
+    def add(self, variant: str, n: int = 1) -> None:
+        """Count ``n`` launches of ``variant`` (a replayed CUDA graph adds
+        the launches it holds; a negative ``n`` takes back a capture's)."""
         with self._lock:
-            self.count += 1
-            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
+            self.count += n
+            left = self.by_variant.get(variant, 0) + n
+            if left:
+                self.by_variant[variant] = left
+            else:
+                self.by_variant.pop(variant, None)
+        tally = getattr(self._thread, "tally", None)
+        if tally is not None:
+            tally[variant] = tally.get(variant, 0) + n
 
     def of(self, variant: str) -> int:
         """Launches of one variant since the last reset."""
         return self.by_variant.get(variant, 0)
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Yield a dict that counts, by variant, the launches the calling
+        thread adds while the block runs (other threads' are not in it)."""
+        outer = getattr(self._thread, "tally", None)
+        self._thread.tally = counts = {}
+        try:
+            yield counts
+        finally:
+            self._thread.tally = outer
 
     def reset(self) -> None:
         with self._lock:

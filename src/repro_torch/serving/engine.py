@@ -126,6 +126,7 @@ from ..runtime.block_pool import BlockPool, PageNode
 from ..runtime.prefix_cache import PrefixCache
 from ..runtime.swap import SwapArena, SwapArenaFullError, SwapChecksumError
 from .config import ServingConfig
+from .decode_graph import DecodeGraph, captures
 from .faults import build_fault_line
 from .lru_index import BatchedLruEviction
 from .paged_stack import stack_class
@@ -333,6 +334,12 @@ class _ShardEngine:
         self.stack = make_stack(cfg, params, config, self.spans,
                                 self._to_dev)
         self.k_pages, self.v_pages = self.stack.k_pages, self.stack.v_pages
+        # the decode call replayed as one CUDA graph where the stack's rows
+        # can be captured and the shard runs on the card
+        # (serving/decode_graph.py); captured at the first decode call
+        self._decode_graph = DecodeGraph(
+            self.stack, self._decode_rows, self._decode_operands(),
+            self.device) if captures(self.stack, self.device) else None
         self._waiting = self.admission.new_queue()
         self._wlock = threading.Lock()
         # scheduler states: _prefilling (pages reserved, prompt chunks
@@ -416,6 +423,8 @@ class _ShardEngine:
         self.rider_chunks = 0
         # dedicated decode steps (one paged launch a layer each)
         self.decode_steps = 0
+        # decode calls (steps, riders, warm-up) served by a graph replay
+        self.decode_graph_replays = 0
         # fault tolerance (DESIGN.md §14): the shard's scheduled faults,
         # its loop heartbeat, and the recovery counters stats() exposes
         self.fault_line = build_fault_line(config.faults, shard_id)
@@ -660,10 +669,33 @@ class _ShardEngine:
         real sequences: padded rows carry page -1 and never write a page,
         reused or otherwise, and the kernel pins their attention output to
         zero, so padding needs no reserved scratch page.  Returns (B, V)
-        logits."""
+        logits.  A call the shard's decode graph takes replays it; any
+        other runs :meth:`_decode_rows`."""
+        args = (block_tables, ctx_lens, tokens, occ, positions, wr_page,
+                wr_slot)
+        graph = self._decode_graph
+        if graph is None or not graph.takes(block_tables):
+            return self._decode_rows(*args)
+        self.decode_graph_replays += 1
+        # the logits are the graph's static output, which the next replay
+        # overwrites: every reader enqueues on this stream before then
+        # (_sample's argmax and its copy to the host, the riders' cat)
+        return graph(*args)
+
+    def _decode_rows(self, block_tables, ctx_lens, tokens, occ, positions,
+                     wr_page, wr_slot):
+        """The decode call's device work, eagerly: embedding gather, the
+        stack's rows, final norm and head."""
         return self._logits(self.stack.rows(
             self.params.embed[tokens], block_tables, ctx_lens, occ,
             positions, wr_page, wr_slot))
+
+    def _decode_operands(self):
+        """(shape, dtype) of each operand of a decode call, in order."""
+        b = self.max_batch
+        return [((b, self.max_pages), torch.int32), ((b,), torch.int32),
+                ((b,), torch.int64), ((b,), torch.bool), ((b,), torch.int64),
+                ((b,), torch.int64), ((b,), torch.int64)]
 
     @staticmethod
     def _operands(seqs, n: int):
@@ -1444,11 +1476,12 @@ class _ShardEngine:
             self.decode_kv_tokens += int(ctx[:n].sum())
             wr_page = np.where(occ, bt[np.arange(b), pos // self.page_size],
                                -1).astype(np.int64)
-            logits = self._paged_decode_step(
-                self._to_dev(bt), self._to_dev(ctx), self._to_dev(toks),
-                self._to_dev(occ), self._to_dev(pos), self._to_dev(wr_page),
-                self._to_dev(pos % self.page_size))
-            return logits, ctx
+            host = (bt, ctx, toks, occ, pos, wr_page, pos % self.page_size)
+            if self._decode_graph is not None:
+                dev = self._decode_graph.upload(host)
+            else:
+                dev = [self._to_dev(a) for a in host]
+            return self._paged_decode_step(*dev), ctx
 
     def _decode_batch(self, batch_seqs):
         """The dedicated decode step for ``batch_seqs`` (padded to
@@ -1600,6 +1633,18 @@ class _ShardEngine:
                 n_b = min(self.max_batch, n_b * 2)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+
+    def warm_decode(self) -> None:
+        """Capture the decode step's graph, where the shard replays one,
+        with an all-padding batch: no row is occupied and no page written,
+        so this only pays the capture, which the first real decode call
+        would pay otherwise — safe on a live engine (step lock).  No-op
+        where the decode step runs eagerly."""
+        if self._decode_graph is None:
+            return
+        with self._step_lock, torch.inference_mode():
+            self._decode_logits([])
+            torch.cuda.synchronize(self.device)
 
     def warm_spec(self) -> None:
         """Run the speculative round's two dispatches (draft-propose +
@@ -1866,6 +1911,7 @@ class _ShardEngine:
             "packed_segments": self.packed_segments,
             "rider_chunks": self.rider_chunks,
             "decode_steps": self.decode_steps,
+            "decode_graph_replays": self.decode_graph_replays,
             "packed_segments_per_chunk": (
                 self.packed_segments / self.packed_chunks
                 if self.packed_chunks else 0.0),

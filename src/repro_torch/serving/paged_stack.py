@@ -49,6 +49,9 @@ class _PagedStack:
     counters the engine's ``stats()`` reports."""
 
     k_pages = v_pages = None
+    # whether ``rows`` can be captured into a CUDA graph (its launches
+    # depend on the shapes alone) and replayed (serving/decode_graph.py)
+    capturable = False
 
     def __init__(self, cfg, params, spans):
         self.cfg = cfg
@@ -91,7 +94,10 @@ class DenseStack(_PagedStack):
     chain runs through the fused ops (``kernels/fused_block.py``): add +
     RMSNorm at ``ln1`` (folding in the previous block's FFN output) and at
     ``ln2``, q/k RMSNorm + RoPE + the K/V store, SiLU * mul; on a CPU
-    tensor each is the plain chain, op for op."""
+    tensor each is the plain chain, op for op.  Its decode call is
+    captured and replayed as one CUDA graph on the card."""
+
+    capturable = True
 
     def __init__(self, cfg, params, config, spans, to_dev):
         super().__init__(cfg, params, spans)
@@ -193,7 +199,8 @@ class LatentStack(_PagedStack):
     dense SwiGLU or, in an expert layer, the dropless expert layer of the
     experts this device holds (``models/moe.py`` ``dropless_moe``).  A
     latent pool takes no verify chunk and moves no page to the host
-    (:func:`stack_class` refuses them)."""
+    (:func:`stack_class` refuses them).  Its decode call runs eagerly:
+    the expert layer sizes its groups from the routing."""
 
     def __init__(self, cfg, params, config, spans, to_dev):
         super().__init__(cfg, params, spans)

@@ -374,13 +374,15 @@ class ServingSession:
 
     def warm(self) -> None:
         """Pay every first-use cost before traffic (the kernels are built
-        when the shards are made): launch each packed-prefill segment
+        when the shards are made): capture the decode step's graph (a
+        dense model on the card), launch each packed-prefill segment
         bucket, one speculative propose/verify round's shapes (when
         ``spec_k`` is on), and (when the swap tier is on) one page
         gather/scatter on every shard, so none of it lands on a live
         request's latency.  Each shard warms under its step lock; safe
         before or after :meth:`start`."""
         for shard in self.engine.shards:
+            shard.warm_decode()
             shard.warm_packed()
             shard.warm_spec()
             shard.warm_swap()
@@ -493,6 +495,8 @@ class ServingSession:
             "packed_segments": sum(s["packed_segments"] for s in shards),
             "rider_chunks": sum(s["rider_chunks"] for s in shards),
             "decode_steps": sum(s["decode_steps"] for s in shards),
+            "decode_graph_replays": sum(s["decode_graph_replays"]
+                                        for s in shards),
             # fault-tolerance counters (DESIGN.md §14): migrations counts
             # completed handoffs (in == out when no handoff is mid-flight)
             "migrations": sum(s["migrated_out"] for s in shards),

@@ -51,6 +51,12 @@ lanes, the spec verify's 160) and the widths of Qwen3-32B and
 TinyLlama-1.1B, and off their vector path; padding rows and lanes must
 leave every page byte as it was.
 
+The serving engine's decode call, replayed from its CUDA graph
+(``serving/decode_graph.py``), is held against the eager call on two tiny
+dense models (D 16 on the paged ``fma`` variant, D 128 with q/k norms on
+``mma``): logits and pools bit-equal over eight calls whose pools are
+overwritten in place between calls, and the same launches by kernel.
+
 The input builders are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_spec_swap.py``, which hold the plain versions against
 the JAX package on the CPU."""
@@ -61,6 +67,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import serving
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_block as tfb
 from repro_torch.kernels import ops
@@ -68,6 +76,7 @@ from repro_torch.kernels import packed_prefill as tpp
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tss
+from repro_torch.models import build_model
 from repro_torch.serving.engine import verify_lanes
 
 TOLS = {"float32": dict(rtol=3e-5, atol=3e-5),
@@ -1141,3 +1150,107 @@ def test_fused_block_wrappers_refuse_what_the_kernels_do_not_take(
     with pytest.raises(ValueError):          # D above the kernel's 256
         ops.qk_norm_rope_write(q, q, q, None, None, cs, cs, pages, pages,
                                tgt, tgt)
+
+
+# tiny dense models for the decode graph: (registry name, overrides)
+GRAPH_MODELS = {
+    "tinyllama-reduced": ("tinyllama-1.1b", {}),
+    "qwen3-d128": ("qwen3-8b", dict(n_layers=4, n_heads=8, n_kv_heads=2,
+                                    head_dim=128)),
+}
+GRAPH_CONFIG = dict(num_pages=96, page_size=8, max_batch=4, max_seq_len=256,
+                    prefill_chunk_tokens=32, watchdog="off")
+
+
+def _decode_host_operands(rng, shard, n_live):
+    """One decode call's host operands: ``n_live`` rows at random contexts
+    over random page runs, the rest padding (page -1)."""
+    b, p, pg = shard.max_batch, shard.max_pages, shard.page_size
+    bt = rng.randint(0, GRAPH_CONFIG["num_pages"], size=(b, p)).astype(
+        np.int32)
+    ctx = np.ones((b,), np.int32)
+    ctx[:n_live] = rng.randint(1, p * pg, size=n_live)
+    occ = np.arange(b) < n_live
+    pos = (ctx - 1).astype(np.int64)
+    wr_page = np.where(occ, bt[np.arange(b), pos // pg], -1).astype(np.int64)
+    return (bt, ctx, rng.randint(1, 200, size=b).astype(np.int64), occ, pos,
+            wr_page, pos % pg)
+
+
+def _grown(after, before):
+    """Launches by variant between two snapshots, the variants that
+    launched."""
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", ["warm", "lazy"])
+@pytest.mark.parametrize("model_name", sorted(GRAPH_MODELS))
+def test_decode_graph_replays_the_eager_call(cuda_device, model_name, first):
+    """Eight decode calls, 0-3 live rows of 4, through the graph (operands
+    staged by ``upload`` on even calls, made by the caller on odd ones)
+    and eagerly, on pools overwritten in place before each call: logits
+    and pools bit-equal, one capture (at ``session.warm`` or the first
+    call), the same launches by kernel and block passes a call."""
+    name, over = GRAPH_MODELS[model_name]
+    cfg = get_config(name).reduced().replace(dtype="bfloat16", **over)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda_device)
+    sessions = [serving.serve(model, params,
+                              serving.ServingConfig(**GRAPH_CONFIG),
+                              device=cuda_device, start=False)
+                for _ in range(2)]
+    eager, graphed = [s.engine.shards[0] for s in sessions]
+    graph = graphed._decode_graph
+    eager._decode_graph = None
+    assert graph is not None
+    pools = graphed.k_pages, graphed.v_pages
+    variant = "mma" if cfg.head_dim == 128 else "fma"
+    rng = np.random.RandomState(9)
+    try:
+        with torch.inference_mode():
+            if first == "warm":
+                sessions[1].warm()
+                assert graph.out is not None
+            for step in range(8):
+                gen = torch.Generator(device=cuda_device).manual_seed(step)
+                for pool in (eager.k_pages, eager.v_pages):
+                    pool.normal_(generator=gen)
+                graphed.k_pages.copy_(eager.k_pages)
+                graphed.v_pages.copy_(eager.v_pages)
+                host = _decode_host_operands(rng, eager, step % 4)
+                counts = []
+                for shard in (eager, graphed):
+                    fused = dict(tfb.launches.by_variant)
+                    paged = dict(tpa.launches.by_variant)
+                    blocks = shard.stack.fused_blocks
+                    if shard is graphed and step % 2 == 0:
+                        args = graph.upload(host)
+                    else:
+                        args = [torch.from_numpy(a).to(cuda_device)
+                                for a in host]
+                    out = shard._paged_decode_step(*args)
+                    torch.cuda.synchronize()
+                    counts.append((dict(tfb.launches.by_variant), fused,
+                                   dict(tpa.launches.by_variant), paged,
+                                   shard.stack.fused_blocks - blocks))
+                    if shard is eager:
+                        want = out.clone()
+                assert out is graph.out
+                assert torch.equal(out, want), (model_name, step)
+                assert torch.equal(graphed.k_pages, eager.k_pages)
+                assert torch.equal(graphed.v_pages, eager.v_pages)
+                (fa, fb, pa, pb, na), (ga, gb, qa, qb, nb) = counts
+                assert _grown(fa, fb) == _grown(ga, gb)
+                assert _grown(pa, pb) == _grown(qa, qb) == \
+                    {variant: cfg.n_layers}
+                assert na == nb == cfg.n_layers
+    finally:
+        for s in sessions:
+            s.close()
+    assert graphed.k_pages is pools[0] is graphed.stack.k_pages
+    assert graphed.v_pages is pools[1] is graphed.stack.v_pages
+    assert graphed.decode_graph_replays == 8 + (first == "warm")
+    assert eager.decode_graph_replays == 0
+    assert graph.pool_bytes > 0
